@@ -5,19 +5,29 @@
 
 Builds the CUDA kernels from the sources in this checkout, synthesizes
 captures with the port's own packet and pcap writers, and drives the
-port's planar path through the entry points a user calls: pcap ->
-FrameReader.iter_planar_chunks -> ScanPipeline (decode_planar,
-project_planar without and with per-column poses) -> destagger_torch.
+port's two paths through the entry points a user calls.
+
+The planar path: pcap -> FrameReader.iter_planar_chunks -> ScanPipeline
+(decode_planar, project_planar without and with per-column poses) ->
+destagger_torch. The packet-layout path: pcap -> FrameReader.iter_chunks
+-> ScanPipeline.batch (every field, XYZ, XYZ2, destaggered; without and
+with poses) and unpack_project_packet_batched / unpack_project (XYZ alone,
+straight from the packet words).
+
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
-a single-return capture and an odd-words dual capture (128x1024, to save
-time) drive the other kernel cases through the same entry points.
+a single-return capture, an odd-words dual capture (128x1024, to save
+time) and, for the packet-layout path, a capture of a sensor with
+per-pixel angle tables (128x512) drive the other kernel cases through the
+same entry points.
 
 Then it holds every kernel case against the plain PyTorch version on the
-same inputs on the card (bit-exact; the dewarp cases within 1 f32 ulp of
-the point norm, differing elements counted) and against the f64 host LUT
-(<= 1 f32 ulp), checks that the main-path run launched every case, and
-times kernel, plain version and host staging at B=32 and B=128.
+same inputs on the card (bit-exact; the planar dewarp cases within 1 f32
+ulp of the point norm, differing elements counted) and against the f64
+host LUT (<= 1 f32 ulp), holds the packet-layout kernel against the
+planar kernel on the same frames (bit-exact), checks that each path's run
+launched every case of its kernel, and times kernel, plain version and
+host staging at B=32 and B=128.
 
 Prints the card's name and power limit, a `kernels` JSON line, and last
 a JSON object with "ok". Exits non-zero, with no result, when CUDA is
@@ -42,6 +52,8 @@ SPLIT_PROFILE = "RNG19_RFL8_SIG16_NIR16_RGB16_DUAL"
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 KERNEL_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/planar_project.cu"
+PACKET_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/packet_project.cu"
+DF_PROFILE = SINGLE_PROFILE   # the capture with per-pixel angle tables
 PALLAS = "ouster_sdk_tpu/ops/pallas_kernels.py"
 REPLACES = {
     "planar": f"{PALLAS}:289",
@@ -50,6 +62,8 @@ REPLACES = {
     "planar_dewarp": f"{PALLAS}:296",
     "planar_dual_dewarp": f"{PALLAS}:308",
     "planar_dual_split_dewarp": f"{PALLAS}:327",
+    "packet": f"{PALLAS}:92",
+    "packet_dual": f"{PALLAS}:102",
 }
 
 
@@ -81,6 +95,17 @@ def synth_info(profile: str, w: int = 2048, h: int = 128):
     info.beam_azimuth_angles = list(np.tile([3.164, 1.055, -1.055, -3.164],
                                             h // 4))
     info.beam_altitude_angles = list(np.linspace(22.5, -22.5, h))
+    return info
+
+
+def synth_df_info(profile: str, w: int = 512, h: int = 128, seed: int = 9):
+    """synth_info with per-pixel (w * h) azimuth and altitude tables made
+    from a seed, as a sensor without a spinning encoder carries them: its
+    LUT does not factorize into per-row and per-column tables."""
+    info = synth_info(profile, w=w, h=h)
+    rng = np.random.default_rng(seed)
+    info.beam_azimuth_angles = list(rng.uniform(-60.0, 60.0, h * w))
+    info.beam_altitude_angles = list(rng.uniform(-35.0, 35.0, h * w))
     return info
 
 
@@ -530,11 +555,268 @@ def _run(torch, port, pk, dev, tmp) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
+    kernels += _run_packet(torch, port, pk, dev, tmp, captures, staged, bw)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw) -> list:
+    """The packet-layout path and its kernel; returns its entries of the
+    `kernels` line. `staged` holds the planar path's runs of the same
+    captures, the other staging this one is held against."""
+    from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
+
+    t0 = time.perf_counter()
+    df_info = synth_df_info(DF_PROFILE)
+    df_path = os.path.join(tmp, "df_512.pcap")
+    synth_capture(df_path, df_info, 4, seed=2)
+    print(f"synthesized per-pixel-angle capture {DF_PROFILE} 128x512 x4 "
+          f"frames in {time.perf_counter() - t0:.1f} s")
+    cells = [  # (key, info, path, frames, chunk)
+        (MAIN_PROFILE, *captures[MAIN_PROFILE], 32, 32),
+        (SINGLE_PROFILE, *captures[SINGLE_PROFILE], 4, 4),
+        (SPLIT_PROFILE, *captures[SPLIT_PROFILE], 4, 4),
+        ("per-pixel angles", df_info, df_path, 4, 4),
+    ]
+
+    # 1. the path through the entry points, counts from zero
+    pkt.reset_launches()
+    pk.reset_launches()
+    runs = {}
+    for key, info, path, n, chunk in cells:
+        pipe = port.ScanPipeline(info)
+        plan, w = pipe.plan, pipe.plan.w
+        planes = port.lut_planes(pipe.planar_lut)
+        poses = torch.from_numpy(random_poses(chunk, w, seed=3)).to(dev)
+        t0 = time.perf_counter()
+        chunks = list(port.FrameReader(path, info).iter_chunks(chunk))
+        stage_s = time.perf_counter() - t0
+        check(sum(c[0].size for c in chunks) == n,
+              f"{key}: staged {sum(c[0].size for c in chunks)} of {n}")
+        fids, frames, _ = chunks[0]
+        check(frames.shape == (chunk, plan.n_pkts, plan.pkt_words)
+              and frames.dtype == np.uint32, f"{key}: frames {frames.shape}")
+        out = pipe.batch(frames)
+        outw = pipe.batch(frames, poses)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        frames_d = pk.words_tensor(frames, dev)
+        xyz = pkt.unpack_project_packet_batched(frames_d, *planes, plan,
+                                                dual=pipe.dual)
+        one = port.unpack_project(frames_d[0], pipe.lut, plan)
+        torch.cuda.synchronize()
+        print(f"{key} 128x{w}: {n} frames pcap -> packet staging -> batch "
+              f"without and with poses in {e2e_s:.3f} s = "
+              f"{n / e2e_s:.2f} frames/s")
+        runs[key] = dict(info=info, pipe=pipe, frames=frames,
+                         frames_d=frames_d, planes=planes, out=out,
+                         outw=outw, xyz=as_tuple(xyz), one=one, poses=poses,
+                         stage_s=stage_s, fids=fids)
+    launches = dict(pkt.launches)
+    print(f"packet-layout path: launches {launches}")
+    # per capture: one batched call, plus the single-frame unpack_project
+    check(launches == {"packet": 2 + 4, "packet_dual": 2},
+          f"packet-layout path launched {launches}")
+    check(sum(pk.launches.values()) == 0,
+          f"packet-layout path launched planar kernels {dict(pk.launches)}")
+
+    # 2. the outputs are right, by the port's own means
+    for key, r in runs.items():
+        pipe, plan, out, outw = r["pipe"], r["pipe"].plan, r["out"], r["outw"]
+        B = r["frames"].shape[0]
+        names = ("RANGE", "RANGE2")[:len(r["xyz"])]
+        check(out["XYZ"].shape == (B, plan.h, plan.w, 3)
+              and out["RANGE"].shape == (B, plan.h, plan.w)
+              and out["status"].shape == (B, plan.w),
+              f"{key}: batch shapes")
+        check(("XYZ2" in out) == pipe.dual, f"{key}: XYZ2 presence")
+        fields = port.decode_frame_batch(r["frames_d"], plan)
+        lut64 = port.make_xyz_lut(r["info"])
+
+        def stag(x):   # back to the staggered frame
+            return port.destagger_torch(x, pipe.shifts, inverse=True)
+
+        # decoded fields of batch == decode_frame_batch (and, below, the
+        # planar decode of the same capture)
+        for k, v in fields.items():
+            g = out[k] if v.ndim == 2 else stag(out[k])
+            check(g.dtype == v.dtype and torch.equal(
+                g.view(torch.uint8), v.view(torch.uint8)), f"{key}: {k}")
+        for name, key_xyz, kx in zip(names, ("XYZ", "XYZ2"), r["xyz"]):
+            rng = fields[name].cpu().numpy().astype(np.int64)
+            # batch's XYZ, staggered and moved to planar order, is the
+            # kernel's XYZ bit for bit
+            bx = stag(out[key_xyz]).movedim(-1, 1)
+            n_diff = int((bx.contiguous().view(torch.int32)
+                          != kx.view(torch.int32)).sum())
+            check(n_diff == 0, f"{key}: batch {key_xyz} differs from the "
+                  f"kernel in {n_diff} elements")
+            x = kx.cpu().numpy()
+            xw = stag(outw[key_xyz]).movedim(-1, 1).cpu().numpy()
+            check(np.isfinite(x).all() and np.isfinite(xw).all(),
+                  f"{key}: non-finite XYZ")
+            zero = np.broadcast_to((rng == 0)[:, None], x.shape)
+            check((x[zero] == 0).all() and (xw[zero] == 0).all(),
+                  f"{key}: zero range not at the origin")
+            check(0 < zero.sum() < zero.size, f"{key}: no zero ranges")
+            worst = ulp_check(x[:4], f64_reference(lut64, rng[:4]))
+            check(worst <= 1.0, f"{key} {key_xyz}: {worst} ulp from f64")
+            # with poses: the f64 LUT point moved by the pose in f64,
+            # within 3 f32 ulp of |point| + |translation|, the size of the
+            # dewarp's intermediates (the projection's half ulp a
+            # component, rotated, plus four roundings of half an ulp)
+            P = r["poses"][:2].cpu().numpy().astype(np.float64)
+            ref = f64_reference(lut64, rng[:2])
+            t = np.moveaxis(P[:, :, :3, 3], -1, 1)[:, :, None, :]
+            size = np.linalg.norm(ref, axis=1, keepdims=True) \
+                + np.linalg.norm(t, axis=1, keepdims=True)
+            ref = np.where(zero[:2], 0.0, np.einsum(
+                "bwij,bjhw->bihw", P[:, :, :3, :3], ref) + t)
+            ulp = np.spacing(size.astype(np.float32))
+            worst_w = float((np.abs(xw[:2] - ref) / ulp).max())
+            check(worst_w <= 3.0, f"{key} {key_xyz} with poses: {worst_w} "
+                  f"ulp from the f64 dewarp")
+            print(f"packet-layout {key} {key_xyz}: batch == kernel (0 "
+                  f"elements differ); kernel within {worst:.3f} f32 ulp of "
+                  f"the f64 LUT; batch with poses within {worst_w:.3f} ulp "
+                  f"(of |point| + |translation|) of the f64 dewarp")
+        check(torch.equal(r["one"].view(torch.int32),
+                          r["xyz"][0][0].movedim(0, -1).contiguous()
+                          .view(torch.int32)),
+              f"{key}: unpack_project differs from the batched call")
+
+    # 3. across stagings: the same frames through the planar path
+    for key in (MAIN_PROFILE, SINGLE_PROFILE, SPLIT_PROFILE):
+        r = runs[key]
+        _, ppipe, pruns, _ = staged[key]
+        pfids, _, _, pfields, pout, _, _ = pruns[0]
+        check(list(pfids) == list(r["fids"]), f"{key}: frame ids differ "
+              f"between stagings")
+        for kx, px in zip(r["xyz"], as_tuple(pout)):
+            n_diff = int((kx.view(torch.int32)
+                          != px.view(torch.int32)).sum())
+            check(n_diff == 0, f"{key}: packet kernel differs from the "
+                  f"planar kernel in {n_diff} elements")
+        fields = port.decode_frame_batch(r["frames_d"], r["pipe"].plan)
+        check(sorted(fields) == sorted(pfields), f"{key}: field names")
+        for k, v in pfields.items():
+            check(torch.equal(fields[k].view(torch.uint8),
+                              v.view(torch.uint8)),
+                  f"{key}: field {k} differs between stagings")
+        print(f"across stagings {key}: packet kernel == planar kernel (0 "
+              f"elements differ, {len(r['xyz'])} returns); "
+              f"{len(pfields)} decoded fields equal")
+
+    # 4. each case through the wrapper against its plain version, dd and
+    # f32, on the card
+    def run_case(key, B, precision="dd"):
+        r = runs[key]
+        pipe, f = r["pipe"], r["frames_d"]
+        f = f.repeat(-(-B // f.shape[0]), 1, 1)[:B].contiguous()
+
+        def kernel():
+            return pkt.unpack_project_packet_batched(
+                f, *r["planes"], pipe.plan, dual=pipe.dual,
+                precision=precision)
+
+        def plain_fn():
+            return pkt.unpack_project_packet_batched_plain(
+                f, *r["planes"], pipe.plan, dual=pipe.dual,
+                precision=precision)
+
+        return kernel, plain_fn
+
+    results = {}
+    for case, key in (("packet", SINGLE_PROFILE),
+                      ("packet_dual", MAIN_PROFILE),
+                      ("packet", "per-pixel angles"),
+                      ("packet_dual", SPLIT_PROFILE)):
+        res = {}
+        for precision in ("dd", "f32"):
+            kernel, plain_fn = run_case(key, 32, precision)
+            pkt.reset_launches()
+            got = kernel()
+            check(pkt.launches[case] == 1
+                  and sum(pkt.launches.values()) == 1,
+                  f"{case}: the wrapper launched {dict(pkt.launches)}")
+            err, n_diff, _ = compare(got, plain_fn(), False,
+                                     f"{case} {key} {precision}")
+            res[precision] = (err, n_diff)
+        print(f"{case} ({key}): dd {res['dd'][1]} and f32 {res['f32'][1]} "
+              f"elements differ from plain (bit-exact), max |d| "
+              f"{max(res['dd'][0], res['f32'][0]):.3g} m")
+        results.setdefault(case, dict(
+            key=key, max_abs_err=max(res["dd"][0], res["f32"][0])))
+
+    # 5. timings at B=32 and B=128, of the wrapper call
+    timings = {}
+    for case, res in results.items():
+        r = runs[res["key"]]
+        plan, n_ret = r["pipe"].plan, len(r["xyz"])
+        hw = plan.h * plan.w
+        fields = port.decode_frame_batch(r["frames_d"], plan)
+        nonzero = sum(int((fields[n].view(torch.int32) != 0).sum())
+                      for n in ("RANGE", "RANGE2")[:n_ret]) \
+            / r["frames_d"].shape[0]
+        for B in (32, 128):
+            kernel, plain_fn = run_case(res["key"], B)
+            ms, lo, hi = cuda_ms(kernel)
+            issue = host_issue_ms(kernel)
+            plain_ms = cuda_ms(plain_fn, iters=3, windows=3, warm=1)[0]
+            # the whole pixel region (every 32-byte sector of it holds a
+            # range word), a status word per column, the 12 LUT planes
+            # once, XYZ out
+            nbytes = (B * hw * plan.pw * 4 + B * plan.w * 4 + 12 * hw * 4
+                      + n_ret * B * 3 * hw * 4)
+            # a nonzero range takes the generic double-single chain: 4
+            # flops to split r, 30 per component
+            flops = nonzero * B * 94
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_F32_PER_S * 1e3
+            timings[(case, B)] = t = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            print(f"time {case} B={B}: wrapper {ms:.4f} ms (median of 7 x "
+                  f"50 calls; min {lo:.4f}, max {hi:.4f}; host issue "
+                  f"{issue:.4f} ms/call), plain {plain_ms:.3f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}, "
+                  f"{nbytes / 1e6:.1f} MB; at the measured copy rate "
+                  f"{nbytes / bw * 1e3:.4f} ms), "
+                  f"{B * hw / ms / 1e6:.1f} Gpx/s")
+
+    # where the time goes in the main cell, per stage, warm, B=32
+    r = runs[MAIN_PROFILE]
+    pipe, n = r["pipe"], r["frames"].shape[0]
+    print(f"host packet staging {MAIN_PROFILE} 128x{pipe.plan.w}: "
+          f"{r['stage_s'] / n * 1e3:.2f} ms/frame (pcap read + reassembly "
+          f"+ packets to slots, {n} frames)")
+    stages = {
+        "host->device copy (frames)": lambda: pk.words_tensor(
+            r["frames"], dev),
+        "batch (plain PyTorch: decode, XYZ, XYZ2, destagger)":
+            lambda: pipe.batch(r["frames_d"]),
+        "batch with poses": lambda: pipe.batch(r["frames_d"], r["poses"]),
+        "unpack_project_packet_batched (kernel)":
+            lambda: pkt.unpack_project_packet_batched(
+                r["frames_d"], *r["planes"], pipe.plan, dual=True),
+    }
+    for name, fn in stages.items():
+        ms = cuda_ms(fn, iters=5, windows=3, warm=1)[0]
+        print(f"stage {name} B={n}: {ms / n:.4f} ms/frame")
+
+    return [{
+        "name": f"packet_project<{'dual' if case == 'packet_dual' else 'single'}>",
+        "route": "cuda", "source": PACKET_SOURCE,
+        "replaces": REPLACES[case], "launches": launches[case],
+        "max_abs_err": results[case]["max_abs_err"],
+        "ms": timings[(case, 32)]["ms"],
+        "plain_ms": timings[(case, 32)]["plain_ms"],
+        "bound_ms": timings[(case, 32)]["bound_ms"],
+        "bound_by": timings[(case, 32)]["bound_by"],
+        "library_ms": None} for case in pkt.CASES]
 
 
 if __name__ == "__main__":

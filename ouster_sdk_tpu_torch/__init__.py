@@ -2,11 +2,19 @@
 CUDA kernels for NVIDIA Hopper.
 
 The planar path: a pcap is read and its frames staged word-planar on the
-host (io.frames.FrameReader), every field decodes on the device
-(ops.unpack), range projects to XYZ in double-single precision with an
-optional fused per-column dewarp (ops.fused.ScanPipeline, kernel
-kernels/csrc/planar_project.cu), and destagger follows
-(ops.destagger.destagger_torch).
+host (io.frames.FrameReader.iter_planar_chunks), every field decodes on
+the device (ops.unpack), range projects to XYZ in double-single precision
+with an optional fused per-column dewarp (ops.fused.ScanPipeline
+.project_planar, kernel kernels/csrc/planar_project.cu), and destagger
+follows (ops.destagger.destagger_torch).
+
+The packet-layout path: frames are staged as whole packets
+(FrameReader.iter_chunks); ScanPipeline.__call__/batch decode every field,
+project XYZ (and XYZ2), dewarp by per-column poses (ops.pose) and
+destagger; ops.packet_kernels.unpack_project_packet_batched projects XYZ
+alone straight from the packet words (kernel
+kernels/csrc/packet_project.cu), for any LUT, per-pixel angle tables
+included.
 
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
@@ -21,21 +29,37 @@ from .core.types import (DataFormat, HeaderType, LidarMode, SensorInfo,
 from .io.frames import FrameReader
 from .io.pcap import PcapReader, PcapWriter
 from .ops.destagger import destagger, destagger_torch
-from .ops.fused import ScanPipeline, default_device
+from .ops.fused import PipelineConfig, ScanPipeline, default_device
 from .ops.packet_format import PacketFormat, PacketWriter
+from .ops.packet_kernels import (lut_planes, unpack_project,
+                                 unpack_project_packet,
+                                 unpack_project_packet_batched)
 from .ops.planar_kernels import (PlanarLut, launches, reset_launches,
-                                 unpack_project_planar_batched)
-from .ops.unpack import (decode_frame_planar, decode_frame_planar_batch,
-                         make_decode_plan)
-from .ops.xyzlut import XYZLut, make_xyz_lut
+                                 unpack_project_planar_batched, words_tensor)
+from .ops.pose import (dewarp, dewarp_np, exp_pose, interp_pose,
+                       interp_pose_np, interp_trajectory, log_pose,
+                       transform, transform_np)
+from .ops.unpack import (decode_frame, decode_frame_batch,
+                         decode_frame_planar, decode_frame_planar_batch,
+                         frame_words_from_packets, make_decode_plan)
+from .ops.xyzlut import (XYZLut, XYZLutDevice, XYZLutFloat, cartesian,
+                         cartesian_dd, cartesian_f32, make_xyz_lut,
+                         make_xyz_lut_float, to_device_lut)
 
 
 __all__ = [
     "ChanField", "DataFormat", "FrameReader", "HeaderType", "LidarMode",
-    "PacketFormat", "PacketWriter", "PcapReader", "PcapWriter", "PlanarLut",
-    "ScanPipeline", "SensorInfo", "UDPProfileLidar", "XYZLut",
+    "PacketFormat", "PacketWriter", "PcapReader", "PcapWriter",
+    "PipelineConfig", "PlanarLut", "ScanPipeline", "SensorInfo",
+    "UDPProfileLidar", "XYZLut", "XYZLutDevice", "XYZLutFloat", "cartesian",
+    "cartesian_dd", "cartesian_f32", "decode_frame", "decode_frame_batch",
     "decode_frame_planar", "decode_frame_planar_batch", "default_device",
-    "default_sensor_info", "destagger", "destagger_torch", "launches",
-    "make_decode_plan", "make_xyz_lut", "reset_launches",
-    "sensor_info_from_metadata", "unpack_project_planar_batched",
+    "default_sensor_info", "destagger", "destagger_torch", "dewarp",
+    "dewarp_np", "exp_pose", "frame_words_from_packets", "interp_pose",
+    "interp_pose_np", "interp_trajectory", "launches", "log_pose",
+    "lut_planes", "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
+    "reset_launches", "sensor_info_from_metadata", "to_device_lut",
+    "transform", "transform_np", "unpack_project", "unpack_project_packet",
+    "unpack_project_packet_batched", "unpack_project_planar_batched",
+    "words_tensor",
 ]

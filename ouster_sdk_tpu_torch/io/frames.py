@@ -1,4 +1,11 @@
-"""FrameReader: pcap -> word-planar staged frames, in numpy.
+"""FrameReader: pcap -> staged frames, in numpy, in two layouts.
+
+Packet-layout staging (iter_chunks, read_all, iteration,
+stream_from_packets) keeps whole lidar packets: a frame is
+(n_pkts, pkt_words) u32 with each packet at the slot of its first column's
+measurement id (m_id // columns-per-packet), gaps zero-filled, the last
+packet of a slot winning. It is what ScanPipeline.__call__/batch and the
+packet projection take.
 
 Word-planar staging is the layout the planar projection kernel reads:
 pixel word k of pixel row p at column C lands at planes[k, p, C]
@@ -23,7 +30,8 @@ import numpy as np
 
 from ..core.types import SensorInfo
 from ..ops.packet_format import PacketFormat, read_bits
-from ..ops.unpack import DecodePlan, make_decode_plan
+from ..ops.unpack import (DecodePlan, frame_words_from_packets,
+                          make_decode_plan)
 from .pcap import PcapReader
 
 
@@ -111,6 +119,79 @@ class FrameReader:
             n * cpp, plan.h, plan.pw)
         planes[:, :, pdest[sel]] = np.transpose(
             pix[sel][:, :, word_sel], (2, 1, 0))
+
+    def iter_chunks(self, chunk: int = 8) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Yield (frame_ids (m,) i64, frames (m, n_pkts, pkt_words) u32,
+        host_ts (m,) u64) for chunks of up to `chunk` packet-layout
+        frames; host_ts is the capture time of the packet that opened the
+        frame."""
+        plan = self.plan
+        pk_words, ts = self._lidar_packets()
+        if pk_words.shape[0] == 0:
+            return
+        fids = read_bits(pk_words, self.pf.geom.frame_id).astype(np.int64)
+        slots = (pk_words[:, plan.hw + plan.mid_word] & 0xFFFF).astype(
+            np.int64) // plan.cpp
+        groups = self._group(fids)
+        for base in range(0, len(groups), chunk):
+            sel = groups[base:base + chunk]
+            frames = np.zeros((len(sel), plan.n_pkts, plan.pkt_words),
+                              np.uint32)
+            for k, idx in enumerate(sel):
+                idx = idx[slots[idx] < plan.n_pkts]
+                idx = idx[_last_occurrence(slots[idx])]
+                frames[k, slots[idx]] = pk_words[idx]
+            yield (np.asarray([fids[g[0]] for g in sel], dtype=np.int64),
+                   frames,
+                   np.asarray([ts[g[0]] for g in sel], dtype=np.uint64))
+
+    def __iter__(self) -> Iterator[Tuple[int, np.ndarray, int]]:
+        """(frame_id, frame (n_pkts, pkt_words) u32, host_ts) per frame."""
+        for fids, frames, tss in self.iter_chunks():
+            for k in range(fids.size):
+                yield int(fids[k]), frames[k], int(tss[k])
+
+    def read_all(self, max_frames: int = 0) -> Tuple[np.ndarray, np.ndarray]:
+        """Stack all frames (the first max_frames when nonzero) into a
+        (B, n_pkts, pkt_words) batch for the batched device calls; returns
+        (batch, frame_ids)."""
+        frames, fids = [], []
+        for fid, words, _ in self:
+            frames.append(words)
+            fids.append(fid)
+            if max_frames and len(frames) >= max_frames:
+                break
+        if not frames:
+            return (np.zeros((0, self.plan.n_pkts, self.plan.pkt_words),
+                             np.uint32), np.zeros(0, np.int64))
+        return np.stack(frames), np.asarray(fids)
+
+    def stream_from_packets(self, packets) -> Iterator[
+            Tuple[int, np.ndarray, int]]:
+        """Stage packet-layout frames from any (idx, packet) iterable, e.g.
+        a live packet source: packets need `.type().value`, `.buf` (u8
+        array) and `.host_timestamp`. A frame is released when the frame
+        id changes, and the last one when the iterable ends."""
+        current: List[np.ndarray] = []
+        current_fid: Optional[int] = None
+        first_ts = 0
+        pkt_size = self.pf.lidar_packet_size
+        for _, p in packets:
+            if p.type().value != "Lidar" or p.buf.size != pkt_size:
+                continue
+            fid = self.pf.frame_id(p.buf)
+            if current_fid is None:
+                current_fid, first_ts = fid, p.host_timestamp
+            if fid != current_fid:
+                yield (current_fid,
+                       frame_words_from_packets(current, self.plan),
+                       first_ts)
+                current, current_fid, first_ts = [], fid, p.host_timestamp
+            current.append(p.buf)
+        if current:
+            yield (current_fid,
+                   frame_words_from_packets(current, self.plan), first_ts)
 
     def iter_planar_chunks(self, chunk: int = 8,
                            words: Optional[Tuple[int, ...]] = None

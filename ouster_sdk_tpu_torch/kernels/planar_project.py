@@ -42,7 +42,7 @@ def _lib() -> ctypes.CDLL:
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
            shape: Tuple[int, ...], device: torch.device) -> None:
     if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, planes on {device}")
+        raise ValueError(f"{name} is on {t.device}, the frames on {device}")
     if t.dtype != dtype:
         raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != shape:

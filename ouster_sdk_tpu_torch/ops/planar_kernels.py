@@ -15,8 +15,9 @@ of error-free transforms that must not be contracted into fused
 multiply-adds (PyTorch's eager ops round once per op; the kernel uses
 __fmul_rn/__fadd_rn). The dewarp is the opposite: the reference's CPU
 lowering contracts each `acc + R_ik * v_k` into one fused multiply-add,
-so the plain version emulates a correctly rounded fma (`_fma_f32`) and
-the kernel calls __fmaf_rn, with acc starting from t_i and k = 0, 1, 2.
+so the plain version emulates a correctly rounded fma
+(`precision.fma_f32`) and the kernel calls __fmaf_rn, with acc starting
+from t_i and k = 0, 1, 2.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from .precision import split_f64_array
+from .precision import fma_f32, split_f64_array
 from .unpack import DecodePlan, FieldPlan, _bits
 from .xyzlut import XYZLut
 
@@ -131,24 +132,6 @@ def _proj_lean(r: torch.Tensor, L: torch.Tensor, *, precision: str
     return torch.where(rf != 0, xyz, zero)
 
 
-def _fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
-             ) -> torch.Tensor:
-    """Correctly rounded float32 a * b + c. The product of two f32 is exact
-    in f64; the f64 sum is rounded to odd (moved one ulp toward the
-    residual of its two-sum when inexact and even), after which rounding
-    to f32 is correct — no double-rounding error."""
-    p = a.to(torch.float64) * b.to(torch.float64)
-    cd = c.to(torch.float64)
-    s = p + cd
-    bb = s - p
-    e = (p - (s - bb)) + (cd - bb)
-    inexact_even = (e != 0) & ((s.view(torch.int64) & 1) == 0)
-    toward = torch.where(e > 0, torch.full_like(s, float("inf")),
-                         torch.full_like(s, float("-inf")))
-    s = torch.where(inexact_even, torch.nextafter(s, toward), s)
-    return s.to(torch.float32)
-
-
 def _dewarp_tile(xyz: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     """Per-column SE(3): pose planes P (B, 12, w) = row-major R (9) + t (3);
     xyz (B, 3, h, w) -> world (B, 3, h, w) (ref: pose_util.h:44 dewarp)."""
@@ -157,7 +140,7 @@ def _dewarp_tile(xyz: torch.Tensor, P: torch.Tensor) -> torch.Tensor:
     for i in range(3):
         acc = P[:, 9 + i].expand_as(xyz[:, 0])
         for k in range(3):
-            acc = _fma_f32(P[:, 3 * i + k], xyz[:, k], acc)
+            acc = fma_f32(P[:, 3 * i + k], xyz[:, k], acc)
         rows.append(acc)
     return torch.stack(rows, dim=1)
 
@@ -200,10 +183,15 @@ def unpack_project_planar_batched_plain(
 
 # -- the wrapper -------------------------------------------------------------
 
-def _range_fields(plan: DecodePlan, dual: bool):
-    fields = [_field_plan(plan, "RANGE")]
-    if dual:
-        fields.append(_field_plan(plan, "RANGE2"))
+def _range_fields(plan: DecodePlan, dual: bool) -> Tuple[FieldPlan, ...]:
+    """The range field plans, shared by the planar and the packet-layout
+    projection; a word-spanning range field has no projection (the
+    reference refuses it too)."""
+    fields = (_field_plan(plan, "RANGE"),) + (
+        (_field_plan(plan, "RANGE2"),) if dual else ())
+    for f in fields:
+        if f.bit + f.size > 32:
+            raise NotImplementedError("word-spanning RANGE profile")
     return fields
 
 
@@ -287,7 +275,9 @@ def unpack_project_planar_batched(planes: torch.Tensor,
     P = None if poses is None else _pose_planes(poses).contiguous()
     out = launch(planes, col_hdrs, lut_stack, P, plan,
                  _range_fields(plan, dual), idx, precision)
-    launches[_case(plan, dual, poses is not None, planes.shape[1], idx)] += 1
+    if planes.shape[0]:                 # an empty batch launches nothing
+        launches[_case(plan, dual, poses is not None, planes.shape[1],
+                       idx)] += 1
     return out if dual else out[0]
 
 

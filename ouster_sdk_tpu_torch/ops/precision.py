@@ -13,6 +13,7 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
 
 _SPLITTER = 4097.0  # 2**12 + 1 for f32 Veltkamp splitting
 
@@ -76,3 +77,21 @@ def split_f64_array(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     hi = x.astype(np.float32)
     lo = (x - hi.astype(np.float64)).astype(np.float32)
     return hi, lo
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+            ) -> torch.Tensor:
+    """Correctly rounded float32 a * b + c. The product of two f32 is exact
+    in f64; the f64 sum is rounded to odd (moved one ulp toward the
+    residual of its two-sum when inexact and even), after which rounding
+    to f32 is correct — no double-rounding error."""
+    p = a.to(torch.float64) * b.to(torch.float64)
+    cd = c.to(torch.float64)
+    s = p + cd
+    bb = s - p
+    e = (p - (s - bb)) + (cd - bb)
+    inexact_even = (e != 0) & ((s.view(torch.int64) & 1) == 0)
+    toward = torch.where(e > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    s = torch.where(inexact_even, torch.nextafter(s, toward), s)
+    return s.to(torch.float32)

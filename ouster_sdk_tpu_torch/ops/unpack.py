@@ -1,10 +1,12 @@
-"""Frame decode from word-planar staging: planes -> LidarScan field arrays.
+"""Frame decode: staged packet words -> LidarScan field arrays.
 
 Every field of a pixel block sits at a fixed (word, bit) position, so
-decode is a contiguous plane index plus shift/mask per field, with no
+decode is a word index plus shift/mask per field, with no per-pixel
 gathers (ref: ouster_client/src/parsing.cpp:653-702, lidar_scan.cpp:
 1282-1322). The decode plan is derived from the profile tables
-(ops/profiles.py).
+(ops/profiles.py). Two stagings decode to the same fields: word-planar
+(`decode_frame_planar[_batch]`) and packet-layout, whole packets at their
+slot (`decode_frame[_batch]`).
 
 Staged words are held as int32 tensors (bit-identical views of the u32
 words): PyTorch has no `>>`/`<<` for uint32 on the CPU. Bit extraction
@@ -235,3 +237,119 @@ def decode_frame_planar(planes: torch.Tensor, col_hdrs: torch.Tensor,
     out = decode_frame_planar_batch(planes[None], col_hdrs[None], plan,
                                     zero_invalid)
     return {k: v[0] for k, v in out.items()}
+
+
+def _scatter_last(v: torch.Tensor, winner: torch.Tensor) -> torch.Tensor:
+    """Move source columns (last axis of v, int64) to their destinations:
+    out[..., d] = v[..., winner[d]], or 0 where no source claims d
+    (winner < 0). `winner` is (B, w) and broadcasts over middle axes."""
+    idx = winner.clamp(min=0)
+    while idx.ndim < v.ndim:
+        idx = idx.unsqueeze(1)
+    idx = idx.expand(*v.shape[:-1], winner.shape[-1])
+    keep = (winner >= 0).reshape(idx.shape[0], *([1] * (v.ndim - 2)), -1)
+    return torch.where(keep, torch.gather(v, -1, idx),
+                       torch.zeros((), dtype=v.dtype, device=v.device))
+
+
+def decode_frame_batch(frames_words: torch.Tensor, plan: DecodePlan,
+                       dense: bool = True, zero_invalid: bool = True
+                       ) -> Dict[str, torch.Tensor]:
+    """Decode a batch of packet-layout frames.
+
+    frames_words (B, n_pkts, pkt_words) holds each frame's lidar packets
+    at their slots, the u32 words as int32 (FrameReader.iter_chunks
+    layout); a missing packet is a zero row, whose columns decode with
+    status 0 and are zeroed. Returns one (B, h, w) tensor per field in its
+    scan dtype, plus 'status' (B, w) u32, 'measurement_id' (B, w) u16 and
+    'timestamp_lo'/'_hi' (B, w) u32.
+
+    dense=True takes column k of packet p for measurement id p * cpp + k
+    (frames staged in order). dense=False scatters each valid column to
+    its decoded measurement id: ids >= w are dropped, and of several
+    columns with one id the last wins. The winner of each destination is
+    found first and then gathered, so the result does not depend on the
+    order in which a device applies duplicate writes.
+    """
+    B, n_pkts, _ = frames_words.shape
+    cols = frames_words[:, :, plan.hw:plan.hw + plan.cpp * plan.cw] \
+        .reshape(B, n_pkts * plan.cpp, plan.cw)           # (B, W, cw)
+    status = _extract(cols, plan.status_word, plan.status_bit,
+                      plan.status_size)
+    m_id = _extract(cols, plan.mid_word, plan.mid_bit, 16)
+    ts_lo, ts_hi = _u32(cols[..., 0]), _u32(cols[..., 1])
+    valid = (status & 1) != 0                             # (B, W)
+    zero = torch.zeros((), dtype=torch.int64, device=cols.device)
+    px = cols[..., plan.chw:plan.chw + plan.h * plan.pw] \
+        .reshape(B, -1, plan.h, plan.pw)                  # (B, W, h, pw)
+
+    winner = None
+    if not dense:
+        # the last source column of each destination; invalid columns and
+        # ids beyond the frame go to the dropped bucket plan.w
+        dest = torch.where(valid, m_id, plan.w).clamp(max=plan.w)
+        src = torch.arange(dest.shape[1], device=cols.device).expand_as(dest)
+        winner = torch.full((B, plan.w + 1), -1, dtype=torch.int64,
+                            device=cols.device)
+        winner.scatter_reduce_(1, dest, src, "amax")
+        winner = winner[:, :plan.w]
+
+    out: Dict[str, torch.Tensor] = {}
+    for f in plan.fields:
+        v = _extract(px, f.word, f.bit, f.size, f.upshift)     # (B, W, h)
+        if zero_invalid:
+            v = torch.where(valid[..., None], v, zero)
+        v = v.transpose(-1, -2)                                # (B, h, W)
+        if winner is not None:
+            v = _scatter_last(v, winner)
+        out[f.name] = _to_scan_dtype(v, f.out_dtype).contiguous()
+
+    if winner is not None:
+        status = _scatter_last(status, winner)
+        ts_lo = _scatter_last(ts_lo, winner)
+        ts_hi = _scatter_last(ts_hi, winner)
+        m_id = torch.where((status & 1) != 0,
+                           torch.arange(plan.w, device=cols.device), zero)
+    else:
+        ts_lo = torch.where(valid, ts_lo, zero)
+        ts_hi = torch.where(valid, ts_hi, zero)
+        m_id = torch.where(valid, m_id, zero)
+        if zero_invalid:
+            # batcher parity: invalid columns' header cells stay 0
+            # (ref: lidar_scan.cpp:1207-1255 per-col skip)
+            status = torch.where(valid, status, zero)
+    out["status"] = _to_scan_dtype(status, "uint32")
+    out["measurement_id"] = _to_scan_dtype(m_id, "uint16")
+    out["timestamp_lo"] = _to_scan_dtype(ts_lo, "uint32")
+    out["timestamp_hi"] = _to_scan_dtype(ts_hi, "uint32")
+    return out
+
+
+def decode_frame(packet_words: torch.Tensor, plan: DecodePlan,
+                 dense: bool = True, zero_invalid: bool = True
+                 ) -> Dict[str, torch.Tensor]:
+    """Single-frame decode: packet_words (n_pkts, pkt_words)."""
+    out = decode_frame_batch(packet_words[None], plan, dense, zero_invalid)
+    return {k: v[0] for k, v in out.items()}
+
+
+def frame_words_from_packets(packets, plan: DecodePlan,
+                             m_ids: Optional[np.ndarray] = None
+                             ) -> np.ndarray:
+    """Host-side staging: stack one frame's lidar packet payloads into the
+    (n_pkts, pkt_words) uint32 array decode_frame takes, each packet at
+    the slot of its first column's measurement id (or of m_ids[i]), gaps
+    zero-filled; a later packet of the same slot replaces the earlier."""
+    out = np.zeros((plan.n_pkts, plan.pkt_words), dtype=np.uint32)
+    for i, p in enumerate(packets):
+        buf = p.buf if hasattr(p, "buf") else p
+        words = np.frombuffer(
+            buf.tobytes() if isinstance(buf, np.ndarray) else buf,
+            dtype="<u4", count=plan.pkt_words)
+        if m_ids is not None:
+            slot = int(m_ids[i]) // plan.cpp
+        else:
+            slot = int(words[plan.hw + plan.mid_word] & 0xFFFF) // plan.cpp
+        if 0 <= slot < plan.n_pkts:
+            out[slot] = words
+    return out

@@ -1,9 +1,11 @@
-"""XYZ projection LUT, built once per sensor in float64 on the host.
+"""XYZ projection LUT and cartesian conversion.
 
 Rebuild of the reference XYZLut (ref: ouster_client/src/xyzlut.cpp:10-129,
-ouster_client/include/ouster/cartesian.h:36-69). The device carries it as
-(hi, lo) float32 pairs (ops/planar_kernels.PlanarLut) and evaluates
-xyz = r * dir + off in double-single arithmetic.
+ouster_client/include/ouster/cartesian.h:36-69). The LUT is built once per
+sensor in float64 on the host; the device carries it as (hi, lo) float32
+pairs ((h, w, 3) in XYZLutDevice, planar in ops/planar_kernels.PlanarLut)
+and evaluates xyz = r * dir + off in double-single arithmetic
+(ops/precision.py).
 """
 
 from __future__ import annotations
@@ -12,9 +14,11 @@ from dataclasses import dataclass
 from typing import Optional, Union
 
 import numpy as np
+import torch
 
 from ..core.constants import RANGE_UNIT
 from ..core.types import SensorInfo
+from .precision import dd_add, dd_mul_f, split_f64_array
 
 
 @dataclass
@@ -29,6 +33,31 @@ class XYZLut:
         """Reference-precision numpy projection (float64)."""
         r = range_img.astype(np.float64)[..., None]
         return np.where(r == 0, 0.0, r * self.direction + self.offset)
+
+
+@dataclass
+class XYZLutFloat:
+    """Single-precision host LUT (ref: processing.cpp:652 XYZLutFloat, the
+    f32 variant of XYZLutT). Same staggered layout as XYZLut."""
+
+    direction: np.ndarray
+    offset: np.ndarray
+
+    def __call__(self, range_img: np.ndarray) -> np.ndarray:
+        r = range_img.astype(np.float32)[..., None]
+        return np.where(r == 0, np.float32(0.0),
+                        r * self.direction + self.offset)
+
+
+@dataclass
+class XYZLutDevice:
+    """Device LUT: (hi, lo) float32 splits of direction and offset, each an
+    (h, w, 3) tensor."""
+
+    dir_hi: torch.Tensor
+    dir_lo: torch.Tensor
+    off_hi: torch.Tensor
+    off_lo: torch.Tensor
 
 
 def make_xyz_lut(
@@ -124,3 +153,63 @@ def make_xyz_lut(
     direction *= range_unit
     offset *= range_unit
     return XYZLut(direction=direction, offset=offset)
+
+
+def make_xyz_lut_float(sensor_or_w, use_extrinsics: bool = False,
+                       **kwargs) -> XYZLutFloat:
+    """Single-precision LUT factory (ref: processing.cpp XYZLutFloat).
+    Built in f64 then rounded once, like the reference's XYZLutT<float>."""
+    lut = make_xyz_lut(sensor_or_w, use_extrinsics, **kwargs)
+    return XYZLutFloat(direction=lut.direction.astype(np.float32),
+                       offset=lut.offset.astype(np.float32))
+
+
+def to_device_lut(lut: XYZLut, device=None) -> XYZLutDevice:
+    """Split the f64 LUT into (hi, lo) f32 pairs on `device` (CUDA when
+    none is named; raises without a GPU)."""
+    if device is None:
+        from .fused import default_device
+
+        device = default_device()
+    dh, dl = split_f64_array(lut.direction)
+    oh, ol = split_f64_array(lut.offset)
+    return XYZLutDevice(*(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                          for a in (dh, dl, oh, ol)))
+
+
+def range_f32(range_img: torch.Tensor) -> torch.Tensor:
+    """Integer range in mm -> float32, exact below 2**24. uint32 has no
+    CPU conversion kernels of its own, so it goes through its int32 view
+    and int64."""
+    if range_img.dtype == torch.uint32:
+        range_img = range_img.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return range_img.to(torch.float32)
+
+
+def cartesian_dd(range_img: torch.Tensor, lut: XYZLutDevice) -> torch.Tensor:
+    """xyz = r * dir + off in double-single f32, within 1 f32 ulp of the
+    reference's f64 value.
+
+    range_img: (..., h, w) integer range in mm; returns (..., h, w, 3) f32
+    meters. Zero range maps to (0, 0, 0) like the reference
+    (ref: cartesian.h:47-66).
+    """
+    r = range_f32(range_img)[..., None]
+    p_hi, p_lo = dd_mul_f(lut.dir_hi, lut.dir_lo, r)
+    s_hi, s_lo = dd_add(p_hi, p_lo, lut.off_hi, lut.off_lo)
+    return torch.where(r == 0, torch.zeros((), dtype=torch.float32,
+                                           device=r.device), s_hi + s_lo)
+
+
+def cartesian_f32(range_img: torch.Tensor, lut: XYZLutDevice
+                  ) -> torch.Tensor:
+    """Plain f32 projection: r * dir_hi + off_hi, two roundings."""
+    r = range_f32(range_img)[..., None]
+    return torch.where(r == 0, torch.zeros((), dtype=torch.float32,
+                                           device=r.device),
+                       r * lut.dir_hi + lut.off_hi)
+
+
+def cartesian(range_img: torch.Tensor, lut: XYZLutDevice) -> torch.Tensor:
+    """Default device projection (double-single precision)."""
+    return cartesian_dd(range_img, lut)

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel (kernels/csrc/planar_project.cu) against its plain
-PyTorch version on the card. Needs an NVIDIA GPU and skips without one.
+"""The port's CUDA kernels (kernels/csrc/planar_project.cu and
+packet_project.cu) against their plain PyTorch versions on the card. Needs
+an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -8,7 +9,9 @@ PyTorch is installed:
 
 Tolerance: bit-exact for the projection (both sides round once per op,
 never contracted); the dewarp cases within 1 f32 ulp of the point's norm
-(the kernel's hardware fma against the plain version's emulated one)."""
+(the kernel's hardware fma against the plain version's emulated one). The
+packet-layout kernel is also bit-exact against the planar kernel on the
+same frames restaged."""
 
 import numpy as np
 import pytest
@@ -17,6 +20,7 @@ import torch
 import ouster_sdk_tpu_torch as pt
 from ouster_sdk_tpu_torch.core.types import (DataFormat, LidarMode,
                                              UDPProfileLidar)
+from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
 from ouster_sdk_tpu_torch.ops import planar_kernels as pk
 
 PROFILES = {"planar": "RNG19_RFL8_SIG16_NIR16",
@@ -136,3 +140,217 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         pk.unpack_project_planar_batched(planes, hdrs, lut.cpu(), pipe.plan,
                                          dual=True)
+
+
+# -- the packet-layout kernel -----------------------------------------------
+
+def _frames(plan, B: int, seed: int) -> np.ndarray:
+    """Random packet-layout words (B, n_pkts, pkt_words) u32 with about 5%
+    of ranges zero and 10% of columns' status cleared."""
+    rng = np.random.default_rng(seed)
+    frames = rng.integers(0, 1 << 32, (B, plan.n_pkts, plan.pkt_words),
+                          dtype=np.uint32)
+    cols = frames[:, :, plan.hw:plan.hw + plan.cpp * plan.cw].reshape(
+        B, plan.w, plan.cw)
+    for f in pk._range_fields(plan, "RANGE2" in {g.name for g in plan.fields}):
+        idx = plan.chw + np.arange(plan.h) * plan.pw + f.word
+        mask = np.uint32(~(((1 << f.size) - 1) << f.bit) & 0xFFFFFFFF)
+        sub = cols[:, :, idx]
+        sub[rng.random(sub.shape) < 0.05] &= mask
+        cols[:, :, idx] = sub
+    bit = np.uint32(1 << plan.status_bit)
+    cols[:, :, plan.status_word] |= bit
+    off = rng.random((B, plan.w)) < 0.1
+    cols[:, :, plan.status_word][off] &= ~bit
+    frames[:, :, plan.hw:plan.hw + plan.cpp * plan.cw] = cols.reshape(
+        B, plan.n_pkts, plan.cpp * plan.cw)
+    return frames
+
+
+def _restage(frames: np.ndarray, plan):
+    """Packet-layout frames -> planes (B, pw, h, w), col_hdrs (B, schw, w)."""
+    B = frames.shape[0]
+    cols = frames[:, :, plan.hw:plan.hw + plan.cpp * plan.cw].reshape(
+        B, plan.w, plan.cw)
+    pix = cols[:, :, plan.chw:plan.chw + plan.h * plan.pw].reshape(
+        B, plan.w, plan.h, plan.pw)
+    hdr = cols[:, :, :plan.chw]
+    if plan.schw > plan.chw:
+        hdr = np.concatenate(
+            [hdr, cols[:, :, plan.cw - (plan.schw - plan.chw):]], axis=2)
+    return (np.ascontiguousarray(pix.transpose(0, 3, 2, 1)),
+            np.ascontiguousarray(hdr.transpose(0, 2, 1)))
+
+
+PACKET_PROFILES = {"single": PROFILES["planar"],
+                   "dual": PROFILES["planar_dual"],
+                   "dual_split": PROFILES["planar_dual_split"],
+                   "legacy": "LEGACY"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["dd", "f32"])
+@pytest.mark.parametrize("kind", sorted(PACKET_PROFILES))
+def test_packet_kernel_matches_plain_and_planar(cuda, kind, precision):
+    """Bit-exact against the plain version and against the planar kernel on
+    the restaged frames; a CUDA tensor launches the kernel, counted once.
+    40 rows x 496 columns: neither a multiple of the kernel's tile."""
+    pipe = pt.ScanPipeline(_info(PACKET_PROFILES[kind], h=40, w=496),
+                           device=cuda, precision=precision)
+    plan, dual = pipe.plan, pipe.dual
+    frames = _frames(plan, 11, seed=5)     # 11: not a multiple of the
+    words = pk.words_tensor(frames, cuda)  # kernel's frames per block
+    planes = pt.lut_planes(pipe.planar_lut)
+    case = "packet_dual" if dual else "packet"
+    pkt.reset_launches()
+    got = pt.unpack_project_packet_batched(words, *planes, plan, dual=dual,
+                                           precision=precision)
+    assert pkt.launches[case] == 1 and sum(pkt.launches.values()) == 1
+    want = pkt.unpack_project_packet_batched_plain(
+        words, *planes, plan, dual=dual, precision=precision)
+    planar = pipe.project_planar(*_restage(frames, plan))
+    torch.cuda.synchronize()
+    got, want, planar = (x if dual else (x,) for x in (got, want, planar))
+    for g, w, p in zip(got, want, planar):
+        assert g.shape == w.shape == (11, 3, plan.h, plan.w)
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(g.view(torch.int32), p.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_packet_single_frame_wrappers_launch_the_kernel(cuda):
+    pipe = pt.ScanPipeline(_info(PROFILES["planar_dual"]), device=cuda,
+                           destagger=False)
+    frames = pk.words_tensor(_frames(pipe.plan, 2, seed=6), cuda)
+    pkt.reset_launches()
+    one = pt.unpack_project_packet(frames[0], *pt.lut_planes(pipe.planar_lut),
+                                   pipe.plan)
+    hw3 = pt.unpack_project(frames[0], pipe.lut, pipe.plan)
+    assert pkt.launches == {"packet": 2, "packet_dual": 0}
+    assert torch.equal(one.movedim(0, -1), hw3)
+    # the pipeline's own XYZ (tensor ops on the card) carries the same bits
+    out = pipe.batch(frames)
+    assert pkt.launches == {"packet": 2, "packet_dual": 0}
+    assert torch.equal(out["XYZ"][0].view(torch.int32),
+                       hw3.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_packet_pipeline_on_the_card_matches_the_cpu(cuda):
+    """ScanPipeline.batch with poses: the card's tensor ops give the CPU's
+    bits (the dewarp's fma is emulated in float64 on both)."""
+    info = _info(PROFILES["planar_dual"])
+    frames = _frames(pt.make_decode_plan(info), 2, seed=7)
+    P = _poses(2, 512, 8)
+    on_card = pt.ScanPipeline(info, device=cuda).batch(frames, P)
+    on_cpu = pt.ScanPipeline(info, device="cpu").batch(frames, P)
+    assert sorted(on_card) == sorted(on_cpu)
+    for k, v in on_cpu.items():
+        assert on_card[k].device.type == "cuda"
+        assert torch.equal(on_card[k].cpu().view(torch.uint8),
+                           v.view(torch.uint8)), k
+    scat = pt.decode_frame_batch(pk.words_tensor(frames, cuda),
+                                 pt.make_decode_plan(info), dense=False)
+    ref = pt.decode_frame_batch(pk.words_tensor(frames, "cpu"),
+                                pt.make_decode_plan(info), dense=False)
+    for k, v in ref.items():
+        assert torch.equal(scat[k].cpu().view(torch.uint8),
+                           v.view(torch.uint8)), k
+
+
+@pytest.mark.cuda
+def test_packet_kernel_rejects_what_it_does_not_take(cuda):
+    pipe = pt.ScanPipeline(_info(PROFILES["planar_dual"]), device=cuda)
+    frames = pk.words_tensor(_frames(pipe.plan, 2, seed=9), cuda)
+    planes = pt.lut_planes(pipe.planar_lut)
+    pkt.reset_launches()
+    with pytest.raises(ValueError, match="int32"):
+        pt.unpack_project_packet_batched(frames.float(), *planes, pipe.plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_packet_batched(
+            frames.transpose(1, 2).contiguous().transpose(1, 2), *planes,
+            pipe.plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_packet_batched(
+            frames, planes[0].movedim(0, -1).contiguous().movedim(-1, 0),
+            *planes[1:], pipe.plan)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pt.unpack_project_packet_batched(frames, planes[0].cpu(),
+                                         *planes[1:], pipe.plan)
+    assert sum(pkt.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_an_empty_batch_launches_nothing_and_counts_nothing(cuda):
+    pipe = pt.ScanPipeline(_info(PROFILES["planar_dual"]), device=cuda)
+    plan = pipe.plan
+    pkt.reset_launches()
+    pk.reset_launches()
+    frames = torch.empty((0, plan.n_pkts, plan.pkt_words), dtype=torch.int32,
+                         device=cuda)
+    xyz, xyz2 = pt.unpack_project_packet_batched(
+        frames, *pt.lut_planes(pipe.planar_lut), plan, dual=True)
+    assert xyz.shape == xyz2.shape == (0, 3, plan.h, plan.w)
+    planes = torch.empty((0, plan.pw, plan.h, plan.w), dtype=torch.int32,
+                         device=cuda)
+    hdrs = torch.empty((0, plan.schw, plan.w), dtype=torch.int32, device=cuda)
+    xyz, xyz2 = pipe.project_planar(planes, hdrs)
+    assert xyz.shape == xyz2.shape == (0, 3, plan.h, plan.w)
+    assert sum(pkt.launches.values()) == sum(pk.launches.values()) == 0
+
+
+# -- ops/pose.py on the card -------------------------------------------------
+
+@pytest.mark.cuda
+def test_pose_functions_on_the_card_match_the_cpu(cuda):
+    """exp_pose, log_pose, interp_pose (torch.linalg.solve) and
+    interp_trajectory on the card against the CPU: rtol 1e-5, atol 1e-6
+    (sin, cos, arccos and the 4x4 solve are other implementations there).
+    With numpy inputs and no device named, the entry points run on the
+    card. Rotation angles stay at or under 2.5 rad: towards pi the
+    logarithm's condition number grows as 1 / sin(angle), and two correct
+    float32 implementations part by more than this tolerance."""
+    from ouster_sdk_tpu_torch.ops import pose as pp
+
+    tol = dict(rtol=1e-5, atol=1e-6)
+    rng = np.random.default_rng(10)
+    xi = np.concatenate([rng.normal(0, 1, (64, 3)), rng.normal(0, 2, (64, 3))],
+                        axis=1).astype(np.float32)
+    angle = np.linalg.norm(xi[:, :3], axis=1, keepdims=True)
+    xi[:, :3] *= np.minimum(1.0, 2.5 / angle)
+    xi[:8, :3] *= 1e-7                      # the small-angle branches
+    xi[0, :3] = 0
+    T_cpu = pp.exp_pose(torch.from_numpy(xi))
+    T = pp.exp_pose(torch.from_numpy(xi).to(cuda))
+    assert T.device.type == "cuda" and torch.isfinite(T).all()
+    torch.testing.assert_close(T.cpu(), T_cpu, **tol)
+    back = pp.log_pose(T_cpu.to(cuda))
+    assert back.device.type == "cuda" and torch.isfinite(back).all()
+    torch.testing.assert_close(back.cpu(), pp.log_pose(T_cpu), **tol)
+
+    knots = pp.exp_pose(torch.from_numpy(xi[8:13] * 0.3)).numpy()
+    knot_ts = np.array([0.0, 1.0, 2.5, 2.5, 4.0], np.float32)
+    query = np.concatenate([np.linspace(-1, 5, 61),
+                            knot_ts]).astype(np.float32)
+    for clamp in (False, True):
+        want = pp.interp_trajectory(query, knot_ts, knots, clamp=clamp,
+                                    device="cpu")
+        got = pp.interp_trajectory(query, knot_ts, knots, clamp=clamp)
+        assert got.device.type == "cuda" and torch.isfinite(got).all()
+        torch.testing.assert_close(got.cpu(), want, **tol)
+        on_card = pp.interp_trajectory(query, knot_ts,
+                                       torch.from_numpy(knots).to(cuda),
+                                       clamp=clamp)
+        assert torch.equal(on_card, got)
+    t = np.linspace(-0.5, 1.5, 33).astype(np.float32)
+    got = pp.interp_pose_np(t, knots[0], knots[1])
+    assert isinstance(got, np.ndarray) and got.dtype == np.float32
+    np.testing.assert_allclose(
+        got, pp.interp_pose_np(t, knots[0], knots[1], device="cpu"), **tol)
+    pts = rng.normal(0, 30, (32, 512, 3)).astype(np.float32)
+    P = _poses(1, 512, 11)[0]
+    on_card = pp.dewarp(torch.from_numpy(pts).to(cuda),
+                        torch.from_numpy(P).to(cuda))
+    assert torch.equal(on_card.cpu().view(torch.int32),
+                       pp.dewarp(torch.from_numpy(pts),
+                                 torch.from_numpy(P)).view(torch.int32))

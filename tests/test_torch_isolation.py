@@ -15,6 +15,7 @@ import torch
 
 import ouster_sdk_tpu_torch as pt
 from _torch_helpers import DUAL, batch, infos, words
+from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
 from ouster_sdk_tpu_torch.ops import planar_kernels as pk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -74,6 +75,19 @@ def test_runs_with_jax_unimportable():
         xyz, xyz2 = pipe.project_planar(planes, hdrs)
         assert xyz.shape == (2, 3, 16, 128) and torch.isfinite(xyz).all()
         assert fields["RANGE"].dtype == torch.uint32
+        plan = pipe.plan
+        frames = rng.integers(0, 1 << 32, (2, plan.n_pkts, plan.pkt_words),
+                              dtype=np.uint32)
+        out = pipe.batch(frames, np.tile(np.eye(4, dtype=np.float32),
+                                         (2, plan.w, 1, 1)))
+        assert out["XYZ2"].shape == (2, 16, 128, 3)
+        assert torch.isfinite(out["XYZ"]).all()
+        pxyz, _ = pt.unpack_project_packet_batched(
+            torch.from_numpy(frames.view(np.int32)),
+            *pt.lut_planes(pipe.planar_lut), plan, dual=True)
+        staggered = pt.ScanPipeline(info, device="cpu", destagger=False)
+        assert torch.equal(pxyz.movedim(1, -1),
+                           staggered.batch(frames)["XYZ"])
         assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -111,6 +125,24 @@ def test_cpu_tensors_launch_no_kernel():
                                      pipe.planar_lut.stack, pipe.plan,
                                      dual=True)
     assert all(n == 0 for n in pk.launches.values())
+
+
+def test_cpu_tensors_launch_no_packet_kernel():
+    from _torch_helpers import frames_batch
+
+    jinfo, pinfo = infos(DUAL)
+    pipe = pt.ScanPipeline(pinfo, device="cpu")
+    frames = frames_batch(jinfo, pipe.plan)
+    pkt.reset_launches()
+    assert set(pkt.launches) == set(pkt.CASES)
+    planes = pt.lut_planes(pipe.planar_lut)
+    pt.unpack_project_packet_batched(words(frames), *planes, pipe.plan,
+                                     dual=True)
+    pt.unpack_project_packet(words(frames[0]), *planes, pipe.plan)
+    pt.unpack_project(words(frames[0]), pipe.lut, pipe.plan)
+    pipe.batch(frames)
+    pipe(frames[0])
+    assert all(n == 0 for n in pkt.launches.values())
 
 
 def test_wrapper_rejects_other_devices_and_precisions():

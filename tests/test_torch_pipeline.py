@@ -1,7 +1,16 @@
-"""The port's planar slice as a whole against the JAX package: a pcap is
-read and staged word-planar (FrameReader.iter_planar_chunks), decoded
-(ScanPipeline.decode_planar) and projected to XYZ with and without
-per-column poses (ScanPipeline.project_planar), on the CPU.
+"""The port's slices as a whole against the JAX package, on the CPU.
+
+The planar slice: a pcap is read and staged word-planar
+(FrameReader.iter_planar_chunks), decoded (ScanPipeline.decode_planar) and
+projected to XYZ with and without per-column poses
+(ScanPipeline.project_planar).
+
+The packet-layout slice: the pcap is staged as whole packets
+(FrameReader.iter_chunks / read_all / iteration / stream_from_packets) and
+goes through ScanPipeline.__call__ / batch: every field, XYZ and XYZ2,
+optional dewarp, optional destagger. Tolerance: every key bit-exact,
+without and with poses (the port's dewarp repeats the rounding order of
+the JAX package's compiled einsum, see ops/pose.rotate_translate).
 
 Captures are written by either package's PacketWriter + PcapWriter with
 the same code, and carry what the grouper has to handle: a straggler of
@@ -17,7 +26,7 @@ import torch
 import jax.numpy as jnp
 
 import ouster_sdk_tpu_torch as pt
-from _torch_helpers import DUAL, infos, poses
+from _torch_helpers import DUAL, SINGLE, infos, poses
 from ouster_sdk_tpu.io.frames import FrameReader as JaxFrameReader
 from ouster_sdk_tpu.io.pcap import PcapWriter as JaxPcapWriter
 from ouster_sdk_tpu.ops.fused import ScanPipeline as JaxScanPipeline
@@ -167,3 +176,165 @@ def test_scan_pipeline_matches(tmp_path, profile):
         ref = np.stack([np.moveaxis(pt.destagger(
             pinfo, np.moveaxis(x, 0, -1)), -1, 0) for x in xyz.numpy()])
         np.testing.assert_array_equal(dxyz.numpy(), ref)
+
+
+# -- the packet-layout slice ------------------------------------------------
+
+def jax_chunks(path, jinfo, chunk):
+    # the native grouper reuses its buffers: copy each chunk
+    return [tuple(np.array(a) for a in c)
+            for c in JaxFrameReader(path, jinfo).iter_chunks(chunk)]
+
+
+@pytest.mark.parametrize("profile", [DUAL, "LEGACY"])
+def test_packet_staging_matches(tmp_path, profile):
+    """iter_chunks, iteration and read_all on a capture written by the
+    port's writers, with a missing packet, a frame in reverse order and a
+    straggler."""
+    jinfo, pinfo = infos(profile)
+    path = str(tmp_path / "cap.pcap")
+    write_capture(path, pinfo, pt.PacketWriter, pt.PcapWriter, seed=2)
+    want = jax_chunks(path, jinfo, 2)
+    got = list(pt.FrameReader(path, pinfo).iter_chunks(2))
+    assert [list(c[0]) for c in got] == [[1, 2], [3]]
+    _assert_chunks_equal(got, want)
+    plan = pt.make_decode_plan(pinfo)
+    assert got[0][1].shape == (2, plan.n_pkts, plan.pkt_words)
+    # frame 3 lost packet 4: its slot is zero; frame 2 arrived reversed
+    # and still sits in slot order
+    assert (got[1][1][0, 4] == 0).all() and got[1][1][0, 3].any()
+    mids = got[0][1][1, :, plan.hw + plan.mid_word] & 0xFFFF
+    assert list(mids) == list(range(0, plan.w, plan.cpp))
+
+    frames = np.concatenate([c[1] for c in want])
+    for k, (fid, words, ts) in enumerate(pt.FrameReader(path, pinfo)):
+        assert (fid, ts) == (k + 1, int(np.concatenate(
+            [c[2] for c in want])[k]))
+        np.testing.assert_array_equal(words, frames[k])
+    for max_frames in (0, 2):
+        wb, wf = JaxFrameReader(path, jinfo).read_all(max_frames)
+        gb, gf = pt.FrameReader(path, pinfo).read_all(max_frames)
+        assert gb.dtype == wb.dtype and gb.shape == wb.shape
+        np.testing.assert_array_equal(gb, wb)
+        np.testing.assert_array_equal(gf, wf)
+
+
+def test_packet_staging_of_an_empty_capture(tmp_path):
+    _, pinfo = infos(DUAL)
+    path = str(tmp_path / "empty.pcap")
+    with pt.PcapWriter(path):
+        pass
+    reader = pt.FrameReader(path, pinfo)
+    assert list(reader.iter_chunks(4)) == []
+    batch, fids = reader.read_all()
+    assert batch.shape == (0, reader.plan.n_pkts, reader.plan.pkt_words)
+    assert batch.dtype == np.uint32 and fids.shape == (0,)
+
+
+class _Packet:
+    """What stream_from_packets needs of a packet."""
+
+    def __init__(self, buf, kind, ts):
+        self.buf, self.host_timestamp, self._kind = buf, ts, kind
+
+    def type(self):
+        class _T:
+            value = self._kind
+        return _T
+
+
+def test_stream_from_packets_matches(tmp_path):
+    jinfo, pinfo = infos(DUAL)
+    path = str(tmp_path / "cap.pcap")
+    write_capture(path, pinfo, pt.PacketWriter, pt.PcapWriter, seed=3)
+    with pt.PcapReader(path) as reader:
+        packets = [(0, _Packet(np.frombuffer(bytes(payload), np.uint8),
+                               "Lidar", pi.timestamp))
+                   for pi, payload in reader]
+    # an IMU packet and a short lidar packet are skipped
+    packets.insert(5, (0, _Packet(np.zeros(48, np.uint8), "Imu", 1)))
+    packets.insert(9, (0, _Packet(np.zeros(48, np.uint8), "Lidar", 2)))
+    want = list(JaxFrameReader(path, jinfo).stream_from_packets(packets))
+    got = list(pt.FrameReader(path, pinfo).stream_from_packets(packets))
+    # the stream splits at every id change: the straggler of frame 1 cuts
+    # frame 2 in two (ids 2, 1, 2, 3), as in the JAX package
+    assert [f[0] for f in got] == [f[0] for f in want] == [1, 2, 1, 2, 3]
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[2] == w[2]
+        assert g[1].dtype == w[1].dtype
+        np.testing.assert_array_equal(g[1], w[1])
+
+
+def _assert_outputs_equal(got, want):
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g, w = got[k].numpy(), np.asarray(w)
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if g.dtype.kind == "f":
+            g = g.view(np.int32 if g.dtype == np.float32 else np.uint16)
+            w = w.view(g.dtype)
+        np.testing.assert_array_equal(g, w, err_msg=k)
+
+
+@pytest.mark.parametrize("destagger", [True, False],
+                         ids=["destagger", "staggered"])
+@pytest.mark.parametrize("profile", [DUAL, SINGLE])
+def test_packet_pipeline_matches(tmp_path, profile, destagger):
+    """pcap -> packet staging -> ScanPipeline.batch and __call__, without
+    and with poses: every key of the output bit for bit."""
+    jinfo, pinfo = infos(profile)
+    path = str(tmp_path / "cap.pcap")
+    write_capture(path, pinfo, pt.PacketWriter, pt.PcapWriter, seed=5)
+    jpipe = JaxScanPipeline(jinfo, destagger=destagger)
+    pipe = pt.ScanPipeline(pinfo, destagger=destagger, device="cpu")
+    assert pipe.cfg.destagger == destagger and pipe.cfg.dual == pipe.dual
+    frames, fids = pt.FrameReader(path, pinfo).read_all()
+    assert list(fids) == [1, 2, 3]
+    P = poses(N_FRAMES, pinfo.format.columns_per_frame, seed=11)
+    for pose in (None, P):
+        want = jpipe.batch(jnp.asarray(frames),
+                           None if pose is None else jnp.asarray(pose))
+        got = pipe.batch(frames, pose)
+        assert ("XYZ2" in got) == pipe.dual
+        assert got["XYZ"].shape == (N_FRAMES, pipe.plan.h, pipe.plan.w, 3)
+        _assert_outputs_equal(got, want)
+        want = jpipe(jnp.asarray(frames[1]),
+                     None if pose is None else jnp.asarray(pose[1]))
+        _assert_outputs_equal(pipe(frames[1], None if pose is None
+                                   else pose[1]), want)
+    # with poses the points moved, and no-return pixels stayed at zero
+    rng = got["RANGE"].numpy()
+    assert (got["XYZ"].numpy()[rng == 0] == 0).all()
+    assert not np.array_equal(got["XYZ"].numpy(),
+                              pipe.batch(frames)["XYZ"].numpy())
+
+
+def test_packet_pipeline_options():
+    """precision='f32' within one rounding of the product (the JAX
+    package's CPU lowering contracts r * dir + off); dewarp=False ignores
+    poses; use_extrinsics reaches the LUT."""
+    from _torch_helpers import frames_batch
+
+    jinfo, pinfo = infos(DUAL)
+    pipe = pt.ScanPipeline(pinfo, device="cpu", precision="f32")
+    frames = frames_batch(jinfo, pipe.plan)
+    want = JaxScanPipeline(jinfo, precision="f32").batch(jnp.asarray(frames))
+    got = pipe.batch(frames)
+    dir_hi = pipe.lut.dir_hi.numpy()
+    for key, name in (("XYZ", "RANGE"), ("XYZ2", "RANGE2")):
+        g, w = got[key].numpy(), np.asarray(want[key])
+        r = pt.destagger_torch(got[name], pipe.shifts, inverse=True) \
+            .numpy().astype(np.float32)[..., None]
+        prod = pt.destagger_torch(torch.from_numpy(r * dir_hi), pipe.shifts)
+        tol = np.spacing(np.abs(prod.numpy())) + np.spacing(np.abs(g))
+        assert (np.abs(g - w) <= tol).all()
+    P = poses(2, pipe.plan.w, seed=2)
+    nodewarp = pt.ScanPipeline(pinfo, device="cpu", dewarp=False)
+    a, b = nodewarp.batch(frames, P), nodewarp.batch(frames)
+    assert all(torch.equal(a[k].view(torch.uint8), b[k].view(torch.uint8))
+               for k in b)
+    with pytest.raises(ValueError, match="poses must be"):
+        pipe.batch(frames, P[:, :-1])
+    pinfo.extrinsic[:3, 3] = [1000.0, 0.0, 0.0]
+    ext = pt.ScanPipeline(pinfo, device="cpu", use_extrinsics=True)
+    assert not torch.equal(ext.batch(frames)["XYZ"], b["XYZ"])
