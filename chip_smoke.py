@@ -5,31 +5,43 @@
 
 Builds the CUDA kernels from the sources in this checkout, synthesizes
 captures with the port's own packet and pcap writers, and drives the
-port's two paths through the entry points a user calls.
+port's three paths through the entry points a user calls.
 
 The planar path: pcap -> FrameReader.iter_planar_chunks -> ScanPipeline
 (decode_planar, project_planar without and with per-column poses) ->
 destagger_torch. The packet-layout path: pcap -> FrameReader.iter_chunks
 -> ScanPipeline.batch (every field, XYZ, XYZ2, destaggered; without and
 with poses) and unpack_project_packet_batched / unpack_project (XYZ alone,
-straight from the packet words).
+straight from the packet words). The LUT-free path: pcap ->
+FrameReader.iter_chunks -> FactorTables -> unpack_project_lutfree_dd (both
+returns on the dual captures) and unpack_project_lutfree, and pcap ->
+iter_planar_chunks -> unpack_project_lutfree_planar: XYZ with the
+directions synthesized in the kernel from per-row and per-column factor
+tables instead of a per-pixel LUT.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
 a single-return capture, an odd-words dual capture (128x1024, to save
 time) and, for the packet-layout path, a capture of a sensor with
 per-pixel angle tables (128x512) drive the other kernel cases through the
-same entry points.
+same entry points; that last sensor does not factorize, so the LUT-free
+path refuses it (checked) and it runs through the packet-layout kernel.
 
 Then it holds every kernel case against the plain PyTorch version on the
 same inputs on the card (bit-exact; the planar dewarp cases within 1 f32
 ulp of the point norm, differing elements counted) and against the f64
 host LUT (<= 1 f32 ulp), holds the packet-layout kernel against the
-planar kernel on the same frames (bit-exact), checks that each path's run
-launched every case of its kernel, and times kernel, plain version and
-host staging at B=32 and B=128.
+planar kernel on the same frames (bit-exact), the planar LUT-free kernel
+against the packet-layout one (bit-exact), counts the elements in which
+the LUT-free kernels differ from the LUT kernels (both are within 1 f32
+ulp of f64, neither is the other's bits), checks that each path's run
+launched every case of its kernel and no kernel of another family, and
+times kernel, plain version and host staging at B=32 and B=128. No single
+PyTorch call computes a double-single projection, so `library_ms` is null
+in every entry.
 
-Prints the card's name and power limit, a `kernels` JSON line, and last
+Prints the card's name and power limit, a `kernels` JSON line of twelve
+entries, and last
 a JSON object with "ok". Exits non-zero, with no result, when CUDA is
 unavailable or any phase fails.
 """
@@ -51,10 +63,15 @@ SINGLE_PROFILE = "RNG19_RFL8_SIG16_NIR16"
 SPLIT_PROFILE = "RNG19_RFL8_SIG16_NIR16_RGB16_DUAL"
 PEAK_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_F32_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
+# that figure counts a fused multiply-add as two operations; a chain of
+# error-free transforms has none, so it runs at half of that rate
+PEAK_F32_NO_FMA_PER_S = PEAK_F32_PER_S / 2
 KERNEL_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/planar_project.cu"
 PACKET_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/packet_project.cu"
+LUTFREE_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/lutfree_project.cu"
 DF_PROFILE = SINGLE_PROFILE   # the capture with per-pixel angle tables
 PALLAS = "ouster_sdk_tpu/ops/pallas_kernels.py"
+PALLAS_LUTFREE = "ouster_sdk_tpu/ops/pallas_lutfree.py"
 REPLACES = {
     "planar": f"{PALLAS}:289",
     "planar_dual": f"{PALLAS}:346",
@@ -64,6 +81,10 @@ REPLACES = {
     "planar_dual_split_dewarp": f"{PALLAS}:327",
     "packet": f"{PALLAS}:92",
     "packet_dual": f"{PALLAS}:102",
+    "lutfree": f"{PALLAS_LUTFREE}:231",
+    "lutfree_dd": f"{PALLAS_LUTFREE}:328",
+    "lutfree_dd_dual": f"{PALLAS_LUTFREE}:346",
+    "lutfree_dd_planar": f"{PALLAS_LUTFREE}:453",
 }
 
 
@@ -555,7 +576,11 @@ def _run(torch, port, pk, dev, tmp) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None})
-    kernels += _run_packet(torch, port, pk, dev, tmp, captures, staged, bw)
+    entries, packet_runs = _run_packet(torch, port, pk, dev, tmp, captures,
+                                       staged, bw)
+    kernels += entries
+    kernels += _run_lutfree(torch, port, pk, dev, captures, staged,
+                            packet_runs, bw)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -563,10 +588,11 @@ def _run(torch, port, pk, dev, tmp) -> int:
     return 0
 
 
-def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw) -> list:
+def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw):
     """The packet-layout path and its kernel; returns its entries of the
-    `kernels` line. `staged` holds the planar path's runs of the same
-    captures, the other staging this one is held against."""
+    `kernels` line and its runs by capture. `staged` holds the planar
+    path's runs of the same captures, the other staging this one is held
+    against."""
     from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
 
     t0 = time.perf_counter()
@@ -816,7 +842,271 @@ def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw) -> list:
         "plain_ms": timings[(case, 32)]["plain_ms"],
         "bound_ms": timings[(case, 32)]["bound_ms"],
         "bound_by": timings[(case, 32)]["bound_by"],
-        "library_ms": None} for case in pkt.CASES]
+        "library_ms": None} for case in pkt.CASES], runs
+
+
+LUTFREE_NAMES = {"lutfree": "lutfree_packet<f32>",
+                 "lutfree_dd": "lutfree_packet<dd>",
+                 "lutfree_dd_dual": "lutfree_packet<dd, dual>",
+                 "lutfree_dd_planar": "lutfree_planar"}
+
+
+def _run_lutfree(torch, port, pk, dev, captures, staged, packet_runs,
+                 bw) -> list:
+    """The LUT-free path and its kernels; returns its entries of the
+    `kernels` line. `staged` and `packet_runs` hold the planar and the
+    packet-layout path's runs of the same captures: the LUT kernels'
+    XYZ of the same frames."""
+    from ouster_sdk_tpu_torch.ops import lutfree_kernels as lf
+    from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
+
+    # 0. a sensor with per-pixel angle tables does not factorize
+    df_info = packet_runs["per-pixel angles"]["info"]
+    check(not port.lutfree_supported(df_info),
+          "lutfree_supported accepted per-pixel angle tables")
+    try:
+        port.FactorTables(df_info)
+    except ValueError as e:
+        print(f"per-pixel angles: lutfree_supported is False and "
+              f"FactorTables raises ({e}); served by packet_project")
+    else:
+        raise SmokeFailure("FactorTables accepted per-pixel angle tables")
+
+    # 1. the path through the entry points, counts from zero
+    lf.reset_launches()
+    pkt.reset_launches()
+    pk.reset_launches()
+    runs = {}
+    for key, n in ((MAIN_PROFILE, 32), (SINGLE_PROFILE, 4),
+                   (SPLIT_PROFILE, 4)):
+        info, path = captures[key]
+        check(port.lutfree_supported(info), f"{key}: not lutfree_supported")
+        tables = port.FactorTables(info)
+        check(tables.rows.device.type == "cuda",
+              "FactorTables did not pick cuda")
+        plan = port.make_decode_plan(info)
+        dual = any(f.name == "RANGE2" for f in plan.fields)
+        t0 = time.perf_counter()
+        fids, frames, _ = next(port.FrameReader(path, info).iter_chunks(n))
+        stage_s = time.perf_counter() - t0
+        check(fids.size == n, f"{key}: staged {fids.size} of {n}")
+        frames_d = pk.words_tensor(frames, dev)
+        dd = port.unpack_project_lutfree_dd(frames_d, tables, plan,
+                                            dual=dual)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        f32 = port.unpack_project_lutfree(frames_d, tables, plan)
+        # dual=False on a dual-return profile projects RANGE alone; a 2-D
+        # frame is one frame
+        first = port.unpack_project_lutfree_dd(frames_d, tables, plan)
+        one = port.unpack_project_lutfree_dd(frames_d[0], tables, plan,
+                                             dual=dual)
+        t1 = time.perf_counter()
+        pfids, planes, hdrs, _ = next(
+            port.FrameReader(path, info).iter_planar_chunks(n))
+        pstage_s = time.perf_counter() - t1
+        check(list(pfids) == list(fids), f"{key}: frame ids differ between "
+              f"stagings")
+        planes_d, hdrs_d = pk.words_tensor(planes, dev), pk.words_tensor(
+            hdrs, dev)
+        planar = port.unpack_project_lutfree_planar(planes_d, hdrs_d, tables,
+                                                    plan)
+        torch.cuda.synchronize()
+        print(f"{key} {plan.h}x{plan.w}: {n} frames pcap -> packet staging -> "
+              f"copy -> unpack_project_lutfree_dd"
+              f"{' (both returns)' if dual else ''} in {e2e_s:.3f} s = "
+              f"{n / e2e_s:.2f} frames/s")
+        runs[key] = dict(info=info, plan=plan, dual=dual, tables=tables,
+                         frames=frames, frames_d=frames_d, planes_d=planes_d,
+                         hdrs_d=hdrs_d, dd=as_tuple(dd), f32=f32,
+                         first=first, one=as_tuple(one), planar=planar,
+                         fids=fids, stage_s=stage_s, pstage_s=pstage_s)
+    launches = dict(lf.launches)
+    print(f"LUT-free path: launches {launches}")
+    # per capture: the dd call (dual on two captures), the f32 call, the
+    # RANGE-alone dd call, the single-frame call, the planar call
+    check(launches == {"lutfree": 3, "lutfree_dd": 1 + 3 + 1,
+                       "lutfree_dd_dual": 2 + 2, "lutfree_dd_planar": 3},
+          f"LUT-free path launched {launches}")
+    check(sum(pk.launches.values()) + sum(pkt.launches.values()) == 0,
+          f"LUT-free path launched LUT kernels {dict(pk.launches)} "
+          f"{dict(pkt.launches)}")
+
+    # 2. the outputs are right, by the port's own means
+    def n_diff(a, b):
+        return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+    for key, r in runs.items():
+        plan, B = r["plan"], r["frames"].shape[0]
+        names = ("RANGE", "RANGE2")[:len(r["dd"])]
+        fields = port.decode_frame_batch(r["frames_d"], plan)
+        lut64 = port.make_xyz_lut(r["info"])
+        for name, x in zip(names, r["dd"]):
+            rng = fields[name].cpu().numpy().astype(np.int64)
+            xn = x.cpu().numpy()
+            check(xn.shape == (B, 3, plan.h, plan.w), f"{key}: {xn.shape}")
+            check(np.isfinite(xn).all(), f"{key} {name}: non-finite XYZ")
+            zero = np.broadcast_to((rng == 0)[:, None], xn.shape)
+            check(0 < zero.sum() < zero.size, f"{key}: no zero ranges")
+            check((xn[zero] == 0).all(),
+                  f"{key} {name}: zero range not at the origin")
+            worst = ulp_check(xn[:4], f64_reference(lut64, rng[:4]))
+            check(worst <= 1.0, f"{key} {name}: dd {worst} ulp from f64")
+            print(f"LUT-free {key} {name}: dd within {worst:.3f} f32 ulp of "
+                  f"the f64 LUT (4 frames)")
+        rng = fields["RANGE"].cpu().numpy().astype(np.int64)[:4]
+        ref = f64_reference(lut64, rng)
+        # planar == packet layout, bit for bit; the RANGE-alone call and
+        # the single-frame call carry the batched call's bits
+        check(n_diff(r["planar"], r["dd"][0]) == 0, f"{key}: planar LUT-free "
+              f"differs from packet-layout LUT-free")
+        check(n_diff(r["first"], r["dd"][0]) == 0,
+              f"{key}: dual=False differs from the first return")
+        for one, x in zip(r["one"], r["dd"]):
+            check(one.shape == (3, plan.h, plan.w)
+                  and n_diff(one, x[0]) == 0,
+                  f"{key}: single-frame call differs from the batched call")
+        worst = ulp_check(r["planar"][:4].cpu().numpy(), ref)
+        check(worst <= 1.0, f"{key}: planar dd {worst} ulp from f64")
+        # f32: the budget the reference states for it, ~r * 3e-7 (twice
+        # that, floor 2e-6 m)
+        f32 = r["f32"][:4].cpu().numpy()
+        r_m = rng.astype(np.float64)[:, None] * 1e-3
+        budget = np.maximum(3e-7 * np.maximum(r_m, 1.0) * 2, 2e-6)
+        err = np.abs(f32 - ref)
+        check(torch.isfinite(r["f32"]).all().item()
+              and (err <= budget).all(),
+              f"{key}: f32 {err.max()} m from f64, over its budget")
+        print(f"LUT-free {key}: planar == packet layout (0 elements "
+              f"differ); f32 max {err.max():.3g} m from the f64 LUT "
+              f"(budget max(6e-7 r, 2e-6) m; worst share "
+              f"{(err / budget).max():.3f})")
+        # against the LUT kernels on the same frames: not the same bits
+        check(list(r["fids"]) == list(packet_runs[key]["fids"])
+              and list(r["fids"]) == list(staged[key][2][0][0]),
+              f"{key}: frame ids differ between paths")
+        lut_packet = packet_runs[key]["xyz"]
+        lut_planar = as_tuple(staged[key][2][0][4])
+        for name, x, a, b in zip(names, r["dd"], lut_packet, lut_planar):
+            check(n_diff(a, b) == 0, f"{key}: the LUT kernels differ")
+            d = n_diff(x, a)
+            worst = float((x - a).abs().max())
+            print(f"LUT-free {key} {name}: {d} of {x.numel()} elements "
+                  f"differ from packet_project / planar_project (max |d| "
+                  f"{worst:.3g} m); both within 1 f32 ulp of f64")
+
+    # 3. each case through its wrapper against its plain version, on the
+    # card, and 4. timings at B=32 and B=128 of the wrapper call
+    case_key = {"lutfree": SINGLE_PROFILE, "lutfree_dd": SINGLE_PROFILE,
+                "lutfree_dd_dual": MAIN_PROFILE,
+                "lutfree_dd_planar": SINGLE_PROFILE}
+
+    def rep(t, B):
+        reps = (-(-B // t.shape[0]),) + (1,) * (t.ndim - 1)
+        return t.repeat(*reps)[:B].contiguous()
+
+    def run_case(case, B):
+        r = runs[case_key[case]]
+        plan, t = r["plan"], r["tables"]
+        if case == "lutfree_dd_planar":
+            args = (rep(r["planes_d"], B), rep(r["hdrs_d"], B), t, plan)
+            return (lambda: lf.unpack_project_lutfree_planar(*args),
+                    lambda: lf.unpack_project_lutfree_planar_plain(*args))
+        args = (rep(r["frames_d"], B), t, plan)
+        if case == "lutfree":
+            return (lambda: lf.unpack_project_lutfree(*args),
+                    lambda: lf.unpack_project_lutfree_plain(*args))
+        dual = case == "lutfree_dd_dual"
+        return (lambda: lf.unpack_project_lutfree_dd(*args, dual=dual),
+                lambda: lf.unpack_project_lutfree_dd_plain(*args, dual=dual))
+
+    results, timings = {}, {}
+    for case in lf.CASES:
+        r = runs[case_key[case]]
+        plan, hw = r["plan"], r["plan"].h * r["plan"].w
+        n_ret = 2 if case == "lutfree_dd_dual" else 1
+        kernel, plain_fn = run_case(case, 32)
+        lf.reset_launches()
+        got = kernel()
+        check(lf.launches[case] == 1 and sum(lf.launches.values()) == 1,
+              f"{case}: the wrapper launched {dict(lf.launches)}")
+        max_err, nd, _ = compare(got, plain_fn(), False, case)
+        check(sum(lf.launches.values()) == 1,
+              f"{case}: the plain version launched a kernel")
+        print(f"{case} ({case_key[case]}): {nd} elements differ from plain "
+              f"(bit-exact), max |d| {max_err:.3g} m")
+        results[case] = max_err
+        fields = port.decode_frame_batch(r["frames_d"], plan)
+        nonzero = sum(int((fields[n].view(torch.int32) != 0).sum())
+                      for n in ("RANGE", "RANGE2")[:n_ret]) \
+            / r["frames_d"].shape[0]
+        is_dd = case != "lutfree"
+        for B in (32, 128):
+            kernel, plain_fn = run_case(case, B)
+            ms, lo, hi = cuda_ms(kernel)
+            issue = host_issue_ms(kernel)
+            plain_ms = cuda_ms(plain_fn, iters=3, windows=3, warm=1)[0]
+            # in: the whole pixel region (every 32-byte sector of it holds
+            # a range word) or the one range plane, a status word per
+            # column, the tables once; out: XYZ
+            words_in = hw if case == "lutfree_dd_planar" else hw * plan.pw
+            tables_b = ((36 * plan.h + 4 * plan.w) if is_dd
+                        else (18 * plan.h + 2 * plan.w)) * 4
+            nbytes = (B * words_in * 4 + B * plan.w * 4 + tables_b
+                      + n_ret * B * 3 * hw * 4)
+            # the least arithmetic: one synthesis a position and call
+            # (dd: 2 dd_mul + 2 dd_add = 70 operations for dir, 70 for
+            # off, a component; f32: 8), one projection a nonzero pixel
+            # and return (dd: dd_mul_f + dd_add + 1 = 34 a component;
+            # f32: 2); none of them a fused multiply-add
+            ops = ((420 * hw + 102 * nonzero * B) if is_dd
+                   else (24 * hw + 6 * nonzero * B))
+            t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+            t_ops = ops / PEAK_F32_NO_FMA_PER_S * 1e3
+            timings[(case, B)] = t = dict(
+                ms=ms, plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+            print(f"time {case} B={B}: wrapper {ms:.4f} ms (median of 7 x "
+                  f"50 calls; min {lo:.4f}, max {hi:.4f}; host issue "
+                  f"{issue:.4f} ms/call), plain {plain_ms:.3f} ms, bound "
+                  f"{t['bound_ms']:.4f} ms ({t['bound_by']}: "
+                  f"{nbytes / 1e6:.1f} MB = {t_bytes:.4f} ms, "
+                  f"{ops / 1e9:.3f} G operations = {t_ops:.4f} ms; at the "
+                  f"measured copy rate {nbytes / bw * 1e3:.4f} ms), "
+                  f"{B * hw / ms / 1e6:.1f} Gpx/s")
+
+    # where the time goes in the main cell, per stage, warm, B=32
+    r = runs[MAIN_PROFILE]
+    plan, t, n = r["plan"], r["tables"], r["frames"].shape[0]
+    print(f"host staging for the LUT-free path {MAIN_PROFILE} "
+          f"{plan.h}x{plan.w}: packet layout {r['stage_s'] / n * 1e3:.2f} "
+          f"ms/frame, planar {r['pstage_s'] / n * 1e3:.2f} ms/frame "
+          f"({n} frames)")
+    stages = {
+        "host->device copy (frames)": lambda: pk.words_tensor(
+            r["frames"], dev),
+        "unpack_project_lutfree_dd, both returns (kernel)":
+            lambda: lf.unpack_project_lutfree_dd(r["frames_d"], t, plan,
+                                                 dual=True),
+        "unpack_project_lutfree (kernel)":
+            lambda: lf.unpack_project_lutfree(r["frames_d"], t, plan),
+        "unpack_project_lutfree_planar (kernel)":
+            lambda: lf.unpack_project_lutfree_planar(
+                r["planes_d"], r["hdrs_d"], t, plan),
+    }
+    for name, fn in stages.items():
+        ms = cuda_ms(fn, iters=10, windows=3, warm=2)[0]
+        print(f"stage {name} B={n}: {ms / n:.4f} ms/frame")
+
+    return [{
+        "name": LUTFREE_NAMES[case], "route": "cuda",
+        "source": LUTFREE_SOURCE, "replaces": REPLACES[case],
+        "launches": launches[case], "max_abs_err": results[case],
+        "ms": timings[(case, 32)]["ms"],
+        "plain_ms": timings[(case, 32)]["plain_ms"],
+        "bound_ms": timings[(case, 32)]["bound_ms"],
+        "bound_by": timings[(case, 32)]["bound_by"],
+        "library_ms": None} for case in lf.CASES]
 
 
 if __name__ == "__main__":

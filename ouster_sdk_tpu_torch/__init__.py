@@ -16,6 +16,13 @@ alone straight from the packet words (kernel
 kernels/csrc/packet_project.cu), for any LUT, per-pixel angle tables
 included.
 
+The LUT-free projection: for a spinning sensor the direction of every
+pixel is synthesized from per-row and per-column factor tables
+(ops.lutfree_kernels.FactorTables) instead of read from a per-pixel LUT;
+unpack_project_lutfree (f32), unpack_project_lutfree_dd (double-single,
+one or both returns) and unpack_project_lutfree_planar project XYZ
+straight from either staging (kernels kernels/csrc/lutfree_project.cu).
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
@@ -30,6 +37,10 @@ from .io.frames import FrameReader
 from .io.pcap import PcapReader, PcapWriter
 from .ops.destagger import destagger, destagger_torch
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
+from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
+                                  unpack_project_lutfree,
+                                  unpack_project_lutfree_dd,
+                                  unpack_project_lutfree_planar)
 from .ops.packet_format import PacketFormat, PacketWriter
 from .ops.packet_kernels import (lut_planes, unpack_project,
                                  unpack_project_packet,
@@ -48,7 +59,7 @@ from .ops.xyzlut import (XYZLut, XYZLutDevice, XYZLutFloat, cartesian,
 
 
 __all__ = [
-    "ChanField", "DataFormat", "FrameReader", "HeaderType", "LidarMode",
+    "ChanField", "DataFormat", "FactorTables", "FrameReader", "HeaderType", "LidarMode",
     "PacketFormat", "PacketWriter", "PcapReader", "PcapWriter",
     "PipelineConfig", "PlanarLut", "ScanPipeline", "SensorInfo",
     "UDPProfileLidar", "XYZLut", "XYZLutDevice", "XYZLutFloat", "cartesian",
@@ -57,9 +68,10 @@ __all__ = [
     "default_sensor_info", "destagger", "destagger_torch", "dewarp",
     "dewarp_np", "exp_pose", "frame_words_from_packets", "interp_pose",
     "interp_pose_np", "interp_trajectory", "launches", "log_pose",
-    "lut_planes", "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
+    "lut_planes", "lutfree_supported", "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
     "reset_launches", "sensor_info_from_metadata", "to_device_lut",
     "transform", "transform_np", "unpack_project", "unpack_project_packet",
-    "unpack_project_packet_batched", "unpack_project_planar_batched",
-    "words_tensor",
+    "unpack_project_lutfree", "unpack_project_lutfree_dd",
+    "unpack_project_lutfree_planar", "unpack_project_packet_batched",
+    "unpack_project_planar_batched", "words_tensor",
 ]

@@ -24,7 +24,7 @@ from typing import Dict, Tuple
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
-SOURCES = ("planar_project.cu", "packet_project.cu")
+SOURCES = ("planar_project.cu", "packet_project.cu", "lutfree_project.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

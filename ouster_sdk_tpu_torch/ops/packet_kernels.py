@@ -95,13 +95,10 @@ def _range_to_xyz(r: torch.Tensor, dir_hi, dir_lo, off_hi, off_lo,
                                                 device=xyz.device))
 
 
-def unpack_project_packet_batched_plain(
-        frames_words: torch.Tensor, dir_hi: torch.Tensor,
-        dir_lo: torch.Tensor, off_hi: torch.Tensor, off_lo: torch.Tensor,
-        plan: DecodePlan, *, precision: str = "dd", dual: bool = False):
-    """The plain PyTorch version of the packet-layout projection: same
-    arguments and results as unpack_project_packet_batched, on any
-    device."""
+def packet_ranges(frames_words: torch.Tensor, plan: DecodePlan, dual: bool
+                  ) -> Tuple[torch.Tensor, ...]:
+    """Each range field of packet-layout frames (B, n_pkts, pkt_words) as
+    (B, h, w) int64 in mm, zero where the column's status bit is clear."""
     _check_frames(frames_words, plan)
     B = frames_words.shape[0]
     # the pixel-word region of every column and the column's valid bit
@@ -113,12 +110,22 @@ def unpack_project_packet_batched_plain(
     px = cols[..., plan.chw:plan.chw + plan.h * plan.pw] \
         .reshape(B, plan.w, plan.h, plan.pw)
     zero = torch.zeros((), dtype=torch.int64, device=cols.device)
-    outs = []
-    for f in _range_fields(plan, dual):
-        r = _extract(px, f.word, f.bit, f.size, f.upshift).transpose(1, 2)
-        outs.append(_range_to_xyz(torch.where(valid, r, zero), dir_hi,
-                                  dir_lo, off_hi, off_lo, precision))
-    return tuple(outs) if dual else outs[0]
+    return tuple(
+        torch.where(valid, _extract(px, f.word, f.bit, f.size, f.upshift)
+                    .transpose(1, 2), zero)
+        for f in _range_fields(plan, dual))
+
+
+def unpack_project_packet_batched_plain(
+        frames_words: torch.Tensor, dir_hi: torch.Tensor,
+        dir_lo: torch.Tensor, off_hi: torch.Tensor, off_lo: torch.Tensor,
+        plan: DecodePlan, *, precision: str = "dd", dual: bool = False):
+    """The plain PyTorch version of the packet-layout projection: same
+    arguments and results as unpack_project_packet_batched, on any
+    device."""
+    outs = tuple(_range_to_xyz(r, dir_hi, dir_lo, off_hi, off_lo, precision)
+                 for r in packet_ranges(frames_words, plan, dual))
+    return outs if dual else outs[0]
 
 
 # -- the wrappers ------------------------------------------------------------

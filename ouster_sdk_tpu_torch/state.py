@@ -1,8 +1,9 @@
 """Carry state built elsewhere into the port: a PlanarLut stack, the four
-tensors of an XYZLutDevice and a DecodePlan given as plain numpy / dict
-data (e.g. the reference package's `np.asarray(PlanarLut(...).stack)`,
-`np.asarray(lut.dir_hi)` and `dataclasses.asdict(plan)`), so two
-implementations can be fed the same LUT and plan."""
+tensors of an XYZLutDevice, the sixteen leaves of a FactorTables and a
+DecodePlan given as plain numpy / dict data (e.g. the reference package's
+`np.asarray(PlanarLut(...).stack)`, `np.asarray(lut.dir_hi)`,
+`np.asarray(tables.P)` and `dataclasses.asdict(plan)`), so two
+implementations can be fed the same LUT, tables and plan."""
 
 from __future__ import annotations
 
@@ -11,6 +12,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+from .ops.lutfree_kernels import FactorTables
 from .ops.planar_kernels import PlanarLut
 from .ops.unpack import DecodePlan, FieldPlan
 from .ops.xyzlut import XYZLutDevice
@@ -37,6 +39,14 @@ def xyz_lut_device_from_numpy(dir_hi: np.ndarray, dir_lo: np.ndarray,
     return XYZLutDevice(*(torch.from_numpy(
         np.array(a, dtype=np.float32, order="C")).to(device)
         for a in arrays))
+
+
+def factor_tables_from_numpy(leaves: Dict[str, np.ndarray], device
+                             ) -> FactorTables:
+    """The sixteen FactorTables leaves as numpy arrays, keyed by the names
+    in FactorTables._LEAVES (P, Q, S, E, F, G as (3, h, 1), ce, se as
+    (1, w), each with its `_lo`) -> FactorTables on `device`."""
+    return FactorTables.from_leaves(leaves, device)
 
 
 def decode_plan_from_jax_fields(fields: Dict[str, Any]) -> DecodePlan:

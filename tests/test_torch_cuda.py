@@ -1,6 +1,6 @@
-"""The port's CUDA kernels (kernels/csrc/planar_project.cu and
-packet_project.cu) against their plain PyTorch versions on the card. Needs
-an NVIDIA GPU and skips without one.
+"""The port's CUDA kernels (kernels/csrc/planar_project.cu,
+packet_project.cu and lutfree_project.cu) against their plain PyTorch
+versions on the card. Needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -11,7 +11,9 @@ Tolerance: bit-exact for the projection (both sides round once per op,
 never contracted); the dewarp cases within 1 f32 ulp of the point's norm
 (the kernel's hardware fma against the plain version's emulated one). The
 packet-layout kernel is also bit-exact against the planar kernel on the
-same frames restaged."""
+same frames restaged. The four LUT-free cases are bit-exact against their
+plain versions on the card and against the plain versions on the CPU, and
+the planar LUT-free kernel against the packet-layout one."""
 
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ import torch
 import ouster_sdk_tpu_torch as pt
 from ouster_sdk_tpu_torch.core.types import (DataFormat, LidarMode,
                                              UDPProfileLidar)
+from ouster_sdk_tpu_torch.ops import lutfree_kernels as lf
 from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
 from ouster_sdk_tpu_torch.ops import planar_kernels as pk
 
@@ -297,6 +300,161 @@ def test_an_empty_batch_launches_nothing_and_counts_nothing(cuda):
     xyz, xyz2 = pipe.project_planar(planes, hdrs)
     assert xyz.shape == xyz2.shape == (0, 3, plan.h, plan.w)
     assert sum(pkt.launches.values()) == sum(pk.launches.values()) == 0
+
+
+# -- the LUT-free kernels ----------------------------------------------------
+
+LUTFREE_PROFILES = {**PACKET_PROFILES, "low_bandwidth": "RNG15_RFL8_NIR8"}
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.cpu().view(torch.int32), b.cpu().view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(LUTFREE_PROFILES))
+def test_lutfree_kernels_match_plain_and_the_cpu(cuda, kind):
+    """Every LUT-free case the profile has, through its wrapper on CUDA
+    tensors: bit-exact against the plain version on the card and against
+    the plain version on the CPU (the CPU's bits on the card), each
+    launch counted once; the planar kernel equals the packet-layout one.
+    40 rows x 496 columns and 11 frames: no multiple of the kernel's tile
+    or of its frames per block."""
+    info = _info(LUTFREE_PROFILES[kind], h=40, w=496)
+    plan = pt.make_decode_plan(info)
+    dual = any(f.name == "RANGE2" for f in plan.fields)
+    frames = _frames(plan, 11, seed=12)
+    planes, hdrs = _restage(frames, plan)
+    tables = pt.FactorTables(info)
+    assert tables.rows.device.type == "cuda"
+    cpu_tables = pt.FactorTables(info, device="cpu")
+    on_card = dict(f=pk.words_tensor(frames, cuda),
+                   p=pk.words_tensor(planes, cuda),
+                   h=pk.words_tensor(hdrs, cuda))
+    on_cpu = dict(f=pk.words_tensor(frames, "cpu"),
+                  p=pk.words_tensor(planes, "cpu"),
+                  h=pk.words_tensor(hdrs, "cpu"))
+
+    def calls(x, t):
+        out = {
+            "lutfree": lambda fn=lf.unpack_project_lutfree: fn(
+                x["f"], t, plan),
+            "lutfree_dd": lambda fn=lf.unpack_project_lutfree_dd: fn(
+                x["f"], t, plan),
+            "lutfree_dd_planar":
+                lambda fn=lf.unpack_project_lutfree_planar: fn(
+                    x["p"], x["h"], t, plan),
+        }
+        if dual:
+            out["lutfree_dd_dual"] = \
+                lambda fn=lf.unpack_project_lutfree_dd: fn(
+                    x["f"], t, plan, dual=True)
+        return out
+
+    plain = {
+        "lutfree": lambda: lf.unpack_project_lutfree_plain(
+            on_card["f"], tables, plan),
+        "lutfree_dd": lambda: lf.unpack_project_lutfree_dd_plain(
+            on_card["f"], tables, plan),
+        "lutfree_dd_dual": lambda: lf.unpack_project_lutfree_dd_plain(
+            on_card["f"], tables, plan, dual=True),
+        "lutfree_dd_planar": lambda: lf.unpack_project_lutfree_planar_plain(
+            on_card["p"], on_card["h"], tables, plan),
+    }
+    cpu = calls(on_cpu, cpu_tables)
+    got = {}
+    for case, fn in calls(on_card, tables).items():
+        lf.reset_launches()
+        out = fn()
+        assert lf.launches[case] == 1 and sum(lf.launches.values()) == 1
+        want, ref = plain[case](), cpu[case]()
+        torch.cuda.synchronize()
+        assert sum(lf.launches.values()) == 1     # neither of those counts
+        got[case] = out
+        for g, w, c in zip(*((x if isinstance(x, tuple) else (x,))
+                             for x in (out, want, ref))):
+            assert g.shape == w.shape == (11, 3, plan.h, plan.w)
+            assert g.device.type == "cuda" and torch.isfinite(g).all()
+            assert _same_bits(g, w), case
+            assert _same_bits(g, c), case
+    assert _same_bits(got["lutfree_dd_planar"], got["lutfree_dd"])
+    if dual:
+        assert _same_bits(got["lutfree_dd_dual"][0], got["lutfree_dd"])
+        assert not _same_bits(*got["lutfree_dd_dual"])
+
+
+@pytest.mark.cuda
+def test_lutfree_single_frames_launch_the_kernels(cuda):
+    info = _info(PROFILES["planar_dual"])
+    plan = pt.make_decode_plan(info)
+    frames = _frames(plan, 2, seed=13)
+    planes, hdrs = (pk.words_tensor(x, cuda) for x in _restage(frames, plan))
+    words = pk.words_tensor(frames, cuda)
+    tables = pt.FactorTables(info)
+    lf.reset_launches()
+    both = pt.unpack_project_lutfree_dd(words, tables, plan, dual=True)
+    one, two = pt.unpack_project_lutfree_dd(words[1], tables, plan, dual=True)
+    assert one.shape == two.shape == (3, plan.h, plan.w)
+    assert _same_bits(one, both[0][1]) and _same_bits(two, both[1][1])
+    f32 = pt.unpack_project_lutfree(words[0], tables, plan)
+    assert f32.shape == (3, plan.h, plan.w)
+    planar = pt.unpack_project_lutfree_planar(planes[1], hdrs[1], tables,
+                                              plan)
+    assert planar.shape == (1, 3, plan.h, plan.w)
+    assert _same_bits(planar[0], one)
+    assert lf.launches == {"lutfree": 1, "lutfree_dd": 0,
+                           "lutfree_dd_dual": 2, "lutfree_dd_planar": 1}
+
+
+@pytest.mark.cuda
+def test_lutfree_kernels_reject_what_they_do_not_take(cuda):
+    info = _info(PROFILES["planar_dual"])
+    plan = pt.make_decode_plan(info)
+    frames = _frames(plan, 2, seed=14)
+    planes, hdrs = (pk.words_tensor(x, cuda) for x in _restage(frames, plan))
+    words = pk.words_tensor(frames, cuda)
+    tables = pt.FactorTables(info)
+    lf.reset_launches()
+    with pytest.raises(ValueError, match="int32"):
+        pt.unpack_project_lutfree_dd(words.float(), tables, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_lutfree_dd(
+            words.transpose(1, 2).contiguous().transpose(1, 2), tables, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_lutfree_planar(
+            planes.transpose(2, 3).contiguous().transpose(2, 3), hdrs,
+            tables, plan)
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_lutfree_planar(
+            planes, hdrs.transpose(1, 2).contiguous().transpose(1, 2),
+            tables, plan)
+    with pytest.raises(ValueError, match="is on cpu"):
+        pt.unpack_project_lutfree(words, pt.FactorTables(info, device="cpu"),
+                                  plan)
+    strided = pt.FactorTables(info)
+    strided.cols = strided.cols.T.contiguous().T
+    with pytest.raises(ValueError, match="contiguous"):
+        pt.unpack_project_lutfree_dd(words, strided, plan, dual=True)
+    assert sum(lf.launches.values()) == 0
+
+
+@pytest.mark.cuda
+def test_an_empty_lutfree_batch_launches_nothing(cuda):
+    info = _info(PROFILES["planar_dual"])
+    plan = pt.make_decode_plan(info)
+    tables = pt.FactorTables(info)
+    lf.reset_launches()
+    frames = torch.empty((0, plan.n_pkts, plan.pkt_words), dtype=torch.int32,
+                         device=cuda)
+    xyz, xyz2 = pt.unpack_project_lutfree_dd(frames, tables, plan, dual=True)
+    assert xyz.shape == xyz2.shape == (0, 3, plan.h, plan.w)
+    assert pt.unpack_project_lutfree(frames, tables, plan).shape == xyz.shape
+    planes = torch.empty((0, plan.pw, plan.h, plan.w), dtype=torch.int32,
+                         device=cuda)
+    hdrs = torch.empty((0, plan.schw, plan.w), dtype=torch.int32, device=cuda)
+    assert pt.unpack_project_lutfree_planar(planes, hdrs, tables,
+                                            plan).shape == xyz.shape
+    assert sum(lf.launches.values()) == 0
 
 
 # -- ops/pose.py on the card -------------------------------------------------

@@ -15,6 +15,7 @@ import torch
 
 import ouster_sdk_tpu_torch as pt
 from _torch_helpers import DUAL, batch, infos, words
+from ouster_sdk_tpu_torch.ops import lutfree_kernels as lf
 from ouster_sdk_tpu_torch.ops import packet_kernels as pkt
 from ouster_sdk_tpu_torch.ops import planar_kernels as pk
 
@@ -88,6 +89,17 @@ def test_runs_with_jax_unimportable():
         staggered = pt.ScanPipeline(info, device="cpu", destagger=False)
         assert torch.equal(pxyz.movedim(1, -1),
                            staggered.batch(frames)["XYZ"])
+        tables = pt.FactorTables(info, device="cpu")
+        assert pt.lutfree_supported(info)
+        words = torch.from_numpy(frames.view(np.int32))
+        lxyz, lxyz2 = pt.unpack_project_lutfree_dd(words, tables, plan,
+                                                   dual=True)
+        assert lxyz.shape == (2, 3, 16, 128) and torch.isfinite(lxyz2).all()
+        # the LUT projection and the LUT-free one: both within 1 f32 ulp
+        # of float64, so at most 1 ulp apart
+        assert torch.allclose(lxyz, pxyz, rtol=3e-7, atol=1e-7)
+        assert pt.unpack_project_lutfree(words[0], tables, plan).shape == (
+            3, 16, 128)
         assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok")
@@ -143,6 +155,24 @@ def test_cpu_tensors_launch_no_packet_kernel():
     pipe.batch(frames)
     pipe(frames[0])
     assert all(n == 0 for n in pkt.launches.values())
+
+
+def test_cpu_tensors_launch_no_lutfree_kernel():
+    from _torch_helpers import frames_batch
+
+    jinfo, pinfo = infos(DUAL)
+    plan = pt.make_decode_plan(pinfo)
+    frames = frames_batch(jinfo, plan)
+    planes, hdrs = batch(jinfo, plan)
+    tables = pt.FactorTables(pinfo, device="cpu")
+    lf.reset_launches()
+    assert set(lf.launches) == set(lf.CASES)
+    pt.unpack_project_lutfree(words(frames), tables, plan)
+    pt.unpack_project_lutfree_dd(words(frames), tables, plan)
+    pt.unpack_project_lutfree_dd(words(frames[0]), tables, plan, dual=True)
+    pt.unpack_project_lutfree_planar(words(planes), words(hdrs), tables,
+                                     plan)
+    assert all(n == 0 for n in lf.launches.values())
 
 
 def test_wrapper_rejects_other_devices_and_precisions():
