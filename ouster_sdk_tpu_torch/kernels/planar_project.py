@@ -15,10 +15,13 @@ import torch
 
 from .build import load
 
-#: Threads per block (columns of one row) and frames per block: each
-#: thread loads its LUT values once and loops over FRAMES_PER_BLOCK frames.
-THREADS = 128
-FRAMES_PER_BLOCK = 8
+#: Launch geometry. A block is `tx` threads along w, 4 adjacent columns
+#: each (1 where a row does not start on a 16-byte boundary: the launcher
+#: sees to that), by `ty` rows; it walks `ry` row steps and
+#: in each loads its LUT values once and loops over `fpb` frames. tx * ty
+#: is at most 256 (the kernel's launch bounds). The values are the best of
+#: kernels/bench_planar.py's sweep on an H100 at 128x2048, B=32 and B=128.
+TUNING = dict(fpb=8, tx=16, ty=16, ry=4)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _ARGTYPES = [_P, _P, _P, _P, _P, _P,            # pointers
@@ -26,7 +29,9 @@ _ARGTYPES = [_P, _P, _P, _P, _P, _P,            # pointers
              _I, _I,                            # w1 w2
              _I, _U, _I, _I, _U, _I,            # bit/mask/up x2
              _I, _I,                            # status row, bit
-             _I, _I, _I, _I, _P]                # dd dual fpb threads stream
+             _I, _I,                            # dd dual
+             _I, _I, _I, _I,                    # fpb tx ty ry
+             _P]                                # stream
 
 
 def _lib() -> ctypes.CDLL:
@@ -57,13 +62,14 @@ def _mask(size: int) -> int:
 
 
 def launch(planes: torch.Tensor, col_hdrs: torch.Tensor,
-           lut_stack: torch.Tensor, pose_planes: Optional[torch.Tensor],
+           lut_stack: torch.Tensor, poses: Optional[torch.Tensor],
            plan, fields: Sequence, idx: Sequence[int], precision: str
            ) -> Tuple[torch.Tensor, ...]:
     """planes (B, P, h, w) int32, col_hdrs (B, schw, w) int32, lut_stack
-    (18, h, w) f32, pose_planes (B, 12, w) f32 (R row-major, then t) or
-    None; `fields` are the range FieldPlans (one or two) and `idx` their
-    plane indices. Returns one (B, 3, h, w) f32 tensor per range field."""
+    (18, h, w) f32, poses (B, w, 4, 4) f32 on a 16-byte boundary (the
+    bottom row of each is not read) or None; `fields` are the range
+    FieldPlans (one or two) and `idx` their plane indices. Returns one
+    (B, 3, h, w) f32 tensor per range field."""
     device = planes.device
     if device.type != "cuda":
         raise ValueError(f"the planar kernel needs CUDA tensors, got "
@@ -77,8 +83,10 @@ def launch(planes: torch.Tensor, col_hdrs: torch.Tensor,
     _check(planes, "planes", torch.int32, (B, P, h, w), device)
     _check(col_hdrs, "col_hdrs", torch.int32, (B, plan.schw, w), device)
     _check(lut_stack, "lut_stack", torch.float32, (18, h, w), device)
-    if pose_planes is not None:
-        _check(pose_planes, "pose_planes", torch.float32, (B, 12, w), device)
+    if poses is not None:
+        _check(poses, "poses", torch.float32, (B, w, 4, 4), device)
+        if poses.data_ptr() % 16:
+            raise ValueError("poses must start on a 16-byte boundary")
 
     outs = tuple(torch.empty((B, 3, h, w), dtype=torch.float32,
                              device=device) for _ in fields)
@@ -91,13 +99,14 @@ def launch(planes: torch.Tensor, col_hdrs: torch.Tensor,
         lib = _lib()
         err = lib.planar_project_launch(
             planes.data_ptr(), col_hdrs.data_ptr(), lut_stack.data_ptr(),
-            None if pose_planes is None else pose_planes.data_ptr(),
+            None if poses is None else poses.data_ptr(),
             outs[0].data_ptr(), outs[-1].data_ptr(),
             B, P, h, w, plan.schw, w1, w2,
             f1.bit, _mask(f1.size), f1.upshift,
             f2.bit, _mask(f2.size), f2.upshift,
             plan.staged_status_word, plan.status_bit, int(precision == "dd"),
-            int(len(fields) == 2), FRAMES_PER_BLOCK, THREADS, stream)
+            int(len(fields) == 2), TUNING["fpb"], TUNING["tx"], TUNING["ty"],
+            TUNING["ry"], stream)
     if err != 0:
         msg = lib.planar_project_error_string(err).decode()
         raise RuntimeError(f"planar_project launch failed: {msg} ({err})")

@@ -18,6 +18,10 @@ lowering contracts each `acc + R_ik * v_k` into one fused multiply-add,
 so the plain version emulates a correctly rounded fma
 (`precision.fma_f32`) and the kernel calls __fmaf_rn, with acc starting
 from t_i and k = 0, 1, 2.
+
+The kernel reads the poses as they come, (B, w, 4, 4) float32: with such
+poses, contiguous, a wrapper call launches the kernel and nothing else.
+`_pose_planes` packs them into planes for the plain version alone.
 """
 
 from __future__ import annotations
@@ -272,8 +276,13 @@ def unpack_project_planar_batched(planes: torch.Tensor,
 
     planes, col_hdrs, poses, idx = _prepare(planes, col_hdrs, poses, plan,
                                             dual, words)
-    P = None if poses is None else _pose_planes(poses).contiguous()
-    out = launch(planes, col_hdrs, lut_stack, P, plan,
+    if poses is not None:
+        # a no-op for float32 contiguous poses: the kernel reads them as
+        # they are, and the call launches nothing but the kernel
+        poses = poses.to(torch.float32).contiguous()
+        if poses.data_ptr() % 16:       # a view at an odd storage offset
+            poses = poses.clone()
+    out = launch(planes, col_hdrs, lut_stack, poses, plan,
                  _range_fields(plan, dual), idx, precision)
     if planes.shape[0]:                 # an empty batch launches nothing
         launches[_case(plan, dual, poses is not None, planes.shape[1],

@@ -7,11 +7,10 @@ PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance: bit-exact for the projection (both sides round once per op,
-never contracted); the dewarp cases within 1 f32 ulp of the point's norm
-(the kernel's hardware fma against the plain version's emulated one). The
-packet-layout kernel is also bit-exact against the planar kernel on the
-same frames restaged. The four LUT-free cases are bit-exact against their
+Tolerance: bit-exact, for the projection (both sides round once per op,
+never contracted) and for the dewarp (the kernel's hardware fma against
+the plain version's correctly rounded emulation). The packet-layout kernel
+is also bit-exact against the planar kernel on the same frames restaged. The four LUT-free cases are bit-exact against their
 plain versions on the card and against the plain versions on the CPU, and
 the planar LUT-free kernel against the packet-layout one."""
 
@@ -105,12 +104,91 @@ def test_kernel_matches_plain(cuda, case, dewarp):
     want = want if pipe.dual else (want,)
     for g, w in zip(got, want):
         assert g.shape == w.shape == (3, 3, pipe.plan.h, pipe.plan.w)
-        if not dewarp:
-            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
-            continue
-        norm = torch.linalg.vector_norm(w.double(), dim=1, keepdim=True)
-        ulp = torch.from_numpy(np.spacing(norm.float().cpu().numpy())).to(cuda)
-        assert ((g.double() - w.double()).abs() <= ulp.double()).all()
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+def _pose_operand(kind: str, P: np.ndarray, device) -> torch.Tensor:
+    """The same poses as operands the wrapper must treat alike: float32
+    contiguous, float64, a non-contiguous view (every other column of a
+    tensor twice as wide), a float32 view that starts 4 bytes past a
+    16-byte boundary, and a bottom row that is not (0, 0, 0, 1)."""
+    t = torch.from_numpy(P).to(device)
+    if kind == "f64":
+        return t.double()
+    if kind == "strided":
+        wide = torch.zeros((P.shape[0], 2 * P.shape[1], 4, 4),
+                           dtype=torch.float32, device=device)
+        wide[:, ::2] = t
+        return wide[:, ::2]
+    if kind == "offset":
+        flat = torch.zeros(t.numel() + 1, dtype=torch.float32, device=device)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+    if kind == "bottom_row":
+        t = t.clone()
+        t[..., 3, :] = torch.tensor([float("nan"), 7.0, -3.0, 0.5],
+                                    device=device)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["f32", "f64", "strided", "offset",
+                                  "bottom_row"])
+@pytest.mark.parametrize("B", [11, 1])
+@pytest.mark.parametrize("case", ["planar", "planar_dual"])
+def test_kernel_with_poses_off_the_tiles(cuda, case, B, kind):
+    """With poses, bit-exact against the plain version at 40 rows x 496
+    columns and 11 frames (no multiple of the kernel's tile, of its rows a
+    block or of its frames a block) and at one frame, for every pose
+    operand; one launch, counted once."""
+    pipe = pt.ScanPipeline(_info(PROFILES[case], h=40, w=496), device=cuda)
+    planes, hdrs = _inputs(pipe.plan, B, seed=20)
+    P = _poses(B, pipe.plan.w, 21)
+    args = (pk.words_tensor(planes, cuda), pk.words_tensor(hdrs, cuda),
+            pipe.planar_lut.stack, pipe.plan)
+    pk.reset_launches()
+    got = pk.unpack_project_planar_batched(
+        *args, dual=pipe.dual, poses=_pose_operand(kind, P, cuda))
+    assert pk.launches[case + "_dewarp"] == 1
+    assert sum(pk.launches.values()) == 1
+    want = pk.unpack_project_planar_batched_plain(
+        *args, dual=pipe.dual, poses=torch.from_numpy(P).to(cuda))
+    torch.cuda.synchronize()
+    for g, w in zip(got if pipe.dual else (got,),
+                    want if pipe.dual else (want,)):
+        assert g.shape == w.shape == (B, 3, 40, 496)
+        assert torch.isfinite(g).all()
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["dd", "f32"])
+@pytest.mark.parametrize("dewarp", [False, True], ids=["proj", "dewarp"])
+def test_kernel_one_column_a_thread(cuda, dewarp, precision):
+    """The kernel's instantiation with 4-byte accesses (one column a
+    thread), which it takes where a row does not start on a 16-byte
+    boundary (here an LUT stack one float off): the same bits as with
+    16-byte accesses."""
+    pipe = pt.ScanPipeline(_info(PROFILES["planar_dual"], h=40, w=496),
+                           device=cuda, precision=precision)
+    planes, hdrs = _inputs(pipe.plan, 5, seed=22)
+    P = torch.from_numpy(_poses(5, 496, 23)).to(cuda) if dewarp else None
+    wide = pipe.project_planar(planes, hdrs, poses=P)
+    lut = pipe.planar_lut.stack
+    flat = torch.zeros(lut.numel() + 1, dtype=lut.dtype, device=cuda)
+    flat[1:] = lut.reshape(-1)
+    narrow = pk.unpack_project_planar_batched(
+        pk.words_tensor(planes, cuda), pk.words_tensor(hdrs, cuda),
+        flat[1:].view(lut.shape), pipe.plan, dual=True, poses=P,
+        precision=precision)
+    torch.cuda.synchronize()
+    want = pk.unpack_project_planar_batched_plain(
+        pk.words_tensor(planes, cuda), pk.words_tensor(hdrs, cuda),
+        pipe.planar_lut.stack, pipe.plan, dual=True, poses=P,
+        precision=precision)
+    for a, b, w in zip(wide, narrow, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32))
+        assert torch.equal(b.view(torch.int32), w.view(torch.int32))
 
 
 @pytest.mark.cuda
@@ -143,6 +221,31 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError, match="is on cpu"):
         pk.unpack_project_planar_batched(planes, hdrs, lut.cpu(), pipe.plan,
                                          dual=True)
+    # poses are the function's own operand, (B, w, 4, 4): the wrapper
+    # refuses packed planes, the binding anything but float32 contiguous
+    # poses on a 16-byte boundary
+    from ouster_sdk_tpu_torch.kernels.planar_project import launch
+
+    w = pipe.plan.w
+    P = torch.from_numpy(_poses(2, w, 5)).to(cuda)
+    pk.reset_launches()
+    with pytest.raises(ValueError, match=r"poses must be \(B, w, 4, 4\)"):
+        pk.unpack_project_planar_batched(
+            planes, hdrs, lut, pipe.plan, dual=True,
+            poses=torch.zeros((2, 12, w), device=cuda))
+    with pytest.raises(ValueError, match=r"poses must be \(B, w, 4, 4\)"):
+        pk.unpack_project_planar_batched(planes, hdrs, lut, pipe.plan,
+                                         dual=True, poses=P[:1])
+    fields, idx = pk._range_fields(pipe.plan, True), (0, 1)
+    for bad, msg in ((torch.zeros((2, 12, w), device=cuda), "shape"),
+                     (P.double(), "float32"),
+                     (P.transpose(2, 3), "contiguous"),
+                     (P.cpu(), "is on cpu"),
+                     (_pose_operand("offset", P.cpu().numpy(), cuda),
+                      "16-byte")):
+        with pytest.raises(ValueError, match=msg):
+            launch(planes, hdrs, lut, bad, pipe.plan, fields, idx, "dd")
+    assert sum(pk.launches.values()) == 0
 
 
 # -- the packet-layout kernel -----------------------------------------------

@@ -123,6 +123,44 @@ def test_planar_projection_bit_exact(kind, dewarp):
         ("_dewarp" if dewarp else "")
 
 
+def _pose_operand(kind: str, P: np.ndarray) -> torch.Tensor:
+    """The same poses as operands the wrapper must treat alike."""
+    t = torch.from_numpy(P)
+    if kind == "f64":
+        return t.double()
+    if kind == "strided":       # every other column of a tensor twice as wide
+        wide = torch.zeros((P.shape[0], 2 * P.shape[1], 4, 4))
+        wide[:, ::2] = t
+        assert not wide[:, ::2].is_contiguous()
+        return wide[:, ::2]
+    if kind == "bottom_row":    # not (0, 0, 0, 1): never used in arithmetic
+        t = t.clone()
+        t[..., 3, :] = torch.tensor([float("nan"), 7.0, -3.0, 0.5])
+    return t
+
+
+@pytest.mark.parametrize("operand", ["f32", "f64", "strided", "bottom_row"])
+@pytest.mark.parametrize("kind", ["single", "dual"])
+def test_planar_dewarp_pose_operands(kind, operand):
+    """float32 contiguous poses, float64 poses, a non-contiguous view and
+    poses whose bottom row is garbage (with a NaN) give the same XYZ: the
+    JAX package's, on the clean float32 poses, bit for bit."""
+    _, _, jplan, jlut, planes, hdrs = _setup(PROFILES[kind])
+    plan = decode_plan_from_jax_fields(dataclasses.asdict(jplan))
+    dual = kind != "single"
+    P = poses(2, plan.w, seed=11)
+    want = jax_project(jnp.asarray(planes), jnp.asarray(hdrs), jlut.stack,
+                       jplan, dual=dual, interpret=True, tile_w=128,
+                       poses=jnp.asarray(P))
+    got = pk.unpack_project_planar_batched(
+        words(planes), words(hdrs), torch.from_numpy(np.array(jlut.stack)),
+        plan, dual=dual, poses=_pose_operand(operand, P))
+    for g, w in zip(got if dual else (got,), want if dual else (want,)):
+        assert g.dtype == torch.float32 and np.isfinite(g.numpy()).all()
+        np.testing.assert_array_equal(_bits(g.numpy()), _bits(w))
+        assert (g.numpy() != 0).any()
+
+
 @pytest.mark.parametrize("kind", ["dual", "dual_split"])
 def test_planar_words_subset(kind):
     """Planes carrying only the range words give the same XYZ as the full
