@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from the sources in this checkout, synthesizes
 captures with the port's own packet and pcap writers, and drives the
-port's three paths through the entry points a user calls.
+port's four paths through the entry points a user calls.
 
 The planar path: pcap -> FrameReader.iter_planar_chunks -> ScanPipeline
 (decode_planar, project_planar without and with per-column poses) ->
@@ -17,7 +17,15 @@ FrameReader.iter_chunks -> FactorTables -> unpack_project_lutfree_dd (both
 returns on the dual captures) and unpack_project_lutfree, and pcap ->
 iter_planar_chunks -> unpack_project_lutfree_planar: XYZ with the
 directions synthesized in the kernel from per-row and per-column factor
-tables instead of a per-pixel LUT.
+tables instead of a per-pixel LUT. The engine path: pcap ->
+DeviceScanIterator (capture scan, admission replay, instance staging,
+decode on the card, LidarScan) at batch 4 and 32, DeviceScanIndex.scan_at,
+LiveDeviceBatcher.push packet by packet (scans stay deferred: a
+torch.profiler trace of the pushes must show no device->host copy) and
+OsfDeviceProjector.attach (XYZ through the planar kernel), every scan
+held equal to the port's ScanBatcher over the same packets; its capture is
+the main capture plus three frames with a lost packet, a straggler and an
+open last frame.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -40,7 +48,9 @@ ulp of f64, neither is the other's bits), checks that each path's run
 launched every case of its kernel and no kernel of another family, and
 times kernel, plain version and host staging at B=32 and B=128. No single
 PyTorch call computes a double-single projection, so `library_ms` is null
-in every entry.
+in every entry. The engine path's stage times, its frames/s from pcap
+to LidarScan, the live path's time a push and a flush and the projector's
+time a window are printed on lines of their own.
 
 Prints the card's name and power limit, a `kernels` JSON line of twelve
 entries, and last
@@ -90,6 +100,9 @@ REPLACES = {
 }
 
 
+CARD = ""    # the card's name and power limit, as nvidia-smi gives them
+
+
 class SmokeFailure(RuntimeError):
     pass
 
@@ -132,12 +145,11 @@ def synth_df_info(profile: str, w: int = 512, h: int = 128, seed: int = 9):
     return info
 
 
-def synth_capture(path: str, info, n_frames: int, seed: int = 1) -> None:
-    """Write n_frames lidar frames as a fragmented-Ethernet pcap: random
-    ranges (about 5% zero), RANGE2 = RANGE // 2 where the profile has it,
-    random SIGNAL/REFLECTIVITY/NEAR_IR, and about 3% of columns with their
-    status bit cleared."""
-    from ouster_sdk_tpu_torch.io.pcap import PcapWriter
+def synth_packets(info, fids, seed: int = 1, ts0: int = 10**9):
+    """Lidar packets of the frames `fids` as (payload bytes, host_ts):
+    random ranges (about 5% zero), RANGE2 = RANGE // 2 where the profile
+    has it, random SIGNAL/REFLECTIVITY/NEAR_IR, and about 3% of columns
+    with their status bit cleared. Frames are 100 ms apart from ts0."""
     from ouster_sdk_tpu_torch.ops.packet_format import PacketWriter
 
     pw = PacketWriter(info.format)
@@ -145,32 +157,140 @@ def synth_capture(path: str, info, n_frames: int, seed: int = 1) -> None:
     cpp, h = pw.columns_per_packet, pw.pixels_per_column
     n_pkts = info.format.columns_per_frame // cpp
     rng = np.random.default_rng(seed)
-    ts = 10**9
+    ts = ts0
+    for fid in fids:
+        for p in range(n_pkts):
+            buf = pw.new_packet()
+            pw.set_packet_header(buf, init_id=info.init_id,
+                                 prod_sn=info.sn)
+            pw.set_frame_id(buf, fid)
+            m0 = p * cpp
+            status = (rng.random(cpp) >= 0.03).astype(np.uint32)
+            pw.set_col_headers(
+                buf, np.arange(cpp, dtype=np.uint64) + m0 * 1000 + ts,
+                np.arange(cpp, dtype=np.uint16) + m0, status)
+            r = rng.integers(1, 1 << 19, size=(h, cpp))
+            r[rng.random((h, cpp)) < 0.05] = 0
+            pw.set_field(buf, "RANGE", r)
+            if "RANGE2" in fields:
+                pw.set_field(buf, "RANGE2", r // 2)
+            for name, bits in (("SIGNAL", 16), ("REFLECTIVITY", 8),
+                               ("NEAR_IR", 16)):
+                if name in fields:
+                    pw.set_field(buf, name,
+                                 rng.integers(0, 1 << bits, (h, cpp)))
+            yield bytes(buf), ts + p * 1000
+        ts += 100_000_000
+
+
+def write_capture(path: str, packets) -> None:
+    """Write (payload, host_ts) lidar packets as a fragmented-Ethernet
+    pcap, to port 7502."""
+    from ouster_sdk_tpu_torch.io.pcap import PcapWriter
+
     with PcapWriter(path) as writer:
-        for fid in range(1, n_frames + 1):
-            for p in range(n_pkts):
-                buf = pw.new_packet()
-                pw.set_packet_header(buf, init_id=info.init_id,
-                                     prod_sn=info.sn)
-                pw.set_frame_id(buf, fid)
-                m0 = p * cpp
-                status = (rng.random(cpp) >= 0.03).astype(np.uint32)
-                pw.set_col_headers(
-                    buf, np.arange(cpp, dtype=np.uint64) + m0 * 1000 + ts,
-                    np.arange(cpp, dtype=np.uint16) + m0, status)
-                r = rng.integers(1, 1 << 19, size=(h, cpp))
-                r[rng.random((h, cpp)) < 0.05] = 0
-                pw.set_field(buf, "RANGE", r)
-                if "RANGE2" in fields:
-                    pw.set_field(buf, "RANGE2", r // 2)
-                for name, bits in (("SIGNAL", 16), ("REFLECTIVITY", 8),
-                                   ("NEAR_IR", 16)):
-                    if name in fields:
-                        pw.set_field(buf, name,
-                                     rng.integers(0, 1 << bits, (h, cpp)))
-                writer.write(bytes(buf), "10.0.0.2", "10.0.0.1", 7502,
-                             7502, ts + p * 1000)
-            ts += 100_000_000
+        for payload, ts in packets:
+            writer.write(payload, "10.0.0.2", "10.0.0.1", 7502, 7502, ts)
+
+
+def synth_capture(path: str, info, n_frames: int, seed: int = 1) -> None:
+    """Write n_frames lidar frames (ids 1..n_frames) of synth_packets."""
+    write_capture(path, synth_packets(info, range(1, n_frames + 1), seed))
+
+
+def engine_capture(path: str, main_path: str, info, n_main: int) -> int:
+    """The main capture followed by three more frames with faults: frame
+    n_main + 1 loses a packet, that packet arrives as a straggler while
+    frame n_main + 2 builds (the batcher drops it), and frame n_main + 3
+    stops after 5/16 of its packets (40 of 128) and stays open at the end
+    of the capture.
+    The first n_main frames are the main capture's bytes. Returns the
+    number of scans the capture holds."""
+    n = info.format.columns_per_frame // info.format.columns_per_packet
+    extra = list(synth_packets(info, range(n_main + 1, n_main + 4), seed=7,
+                               ts0=10**9 + n_main * 100_000_000))
+    f1, f2, f3 = (extra[:n], extra[n:2 * n],
+                  extra[2 * n:2 * n + n * 5 // 16])
+    lost = f1.pop(5)
+    f2.insert(3, (lost[0], f2[2][1] + 500_000))
+    tail = path + ".tail"
+    write_capture(tail, f1 + f2 + f3)
+    with open(path, "wb") as out:
+        for part, skip in ((main_path, 0), (tail, 24)):  # one file header
+            with open(part, "rb") as f:
+                out.write(f.read()[skip:])
+    os.remove(tail)
+    return n_main + 3
+
+
+def capture_packets(port, info, path: str):
+    """[(datagram index, LidarPacket)] of the sensor's lidar stream in
+    capture order, classified packet by packet: by size, and by the
+    configured port where the metadata names one."""
+    size = port.PacketFormat.from_info(info).lidar_packet_size
+    want = info.config.udp_port_lidar or 0
+    out = []
+    with port.PcapReader(path) as reader:
+        for k, (pi, payload) in enumerate(reader):
+            if len(payload) == size and want in (0, pi.dst_port):
+                out.append((k, port.LidarPacket(bytes(payload),
+                                                pi.timestamp)))
+    return out
+
+
+EOF_RELEASE = 1 << 62
+
+
+def batcher_scans(port, info, packets, trailing_flush: bool = True):
+    """[(released_at, LidarScan)] as the port's ScanBatcher releases them,
+    packet by packet; the scan left open at the end is emitted when it
+    has a valid column (the scan sources' trailing flush)."""
+    batcher, cur, out = port.ScanBatcher(info), port.LidarScan(info), []
+    for k, pkt in packets:
+        if batcher(pkt, cur):
+            out.append((k, cur))
+            cur = port.LidarScan(info)
+    if trailing_flush and cur.frame_id != -1 and np.any(cur.status & 1):
+        out.append((EOF_RELEASE, cur))
+    return out
+
+
+def scans_differ(a, b) -> int:
+    """Count of differing elements between two LidarScans over every
+    field and header array; a missing field, or another dtype or shape,
+    or another scalar header fails the run."""
+    check(sorted(a.fields) == sorted(b.fields),
+          f"fields {sorted(a.fields)} != {sorted(b.fields)}")
+    n = 0
+    pairs = [(name, a.field(name), b.field(name)) for name in b.fields]
+    pairs += [(attr, getattr(a, attr), getattr(b, attr))
+              for attr in ("timestamp", "measurement_id", "status",
+                           "packet_timestamp", "alert_flags", "pose")]
+    for name, x, y in pairs:
+        check(x.dtype == y.dtype and x.shape == y.shape,
+              f"{name}: {x.dtype}{x.shape} != {y.dtype}{y.shape}")
+        n += int((x != y).sum())
+    for attr in ("frame_id", "frame_status", "shutdown_countdown",
+                 "shot_limiting_countdown"):
+        check(getattr(a, attr) == getattr(b, attr),
+              f"{attr}: {getattr(a, attr)} != {getattr(b, attr)}")
+    return n
+
+
+def hold_scans(got, want, what: str) -> None:
+    """[(released_at, scan)] against the oracle's: same release points in
+    order, 0 differing elements, and equal by `==`."""
+    check([(r, s.frame_id) for r, s in got]
+          == [(r, s.frame_id) for r, s in want],
+          f"{what}: released {[(r, s.frame_id) for r, s in got]}, the "
+          f"batcher {[(r, s.frame_id) for r, s in want]}")
+    check([r for r, _ in got] == sorted(r for r, _ in got),
+          f"{what}: released_at out of order")
+    n = sum(scans_differ(a, b) for (_, a), (_, b) in zip(got, want))
+    check(n == 0 and all(a == b for (_, a), (_, b) in zip(got, want)),
+          f"{what}: {n} elements differ from the ScanBatcher's scans")
+    print(f"{what}: {len(got)} scans, {n} elements differ from the port's "
+          f"ScanBatcher in every field and header, released_at equal")
 
 
 def random_poses(B: int, w: int, seed: int) -> np.ndarray:
@@ -316,6 +436,8 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi)
+    global CARD
+    CARD = smi
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
@@ -507,7 +629,10 @@ def _run(torch, port, pk, dev, tmp) -> int:
     from ouster_sdk_tpu_torch.kernels.bench_planar import kernel_profile
 
     def device_events(what, fn):
-        rows = kernel_profile(fn)
+        for _ in range(5):      # the profiler at times returns no record
+            rows = kernel_profile(fn)
+            if rows:
+                break
         for name, count, us in rows:
             print(f"profile {what}: {count} x {name[:96]} {us:.1f} us")
         return rows
@@ -615,6 +740,12 @@ def _run(torch, port, pk, dev, tmp) -> int:
     kernels += entries
     kernels += _run_lutfree(torch, port, pk, dev, captures, staged,
                             packet_runs, bw)
+    engine_launches = _run_engine(torch, port, pk, dev, tmp, captures,
+                                  staged)
+    # row 1's kernel also serves the engine path's projector
+    kernels[0]["launches"] += engine_launches
+    print(f"planar_project<planar>: {launches['planar']} launches on the "
+          f"planar path + {engine_launches} on the engine path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1141,6 +1272,368 @@ def _run_lutfree(torch, port, pk, dev, captures, staged, packet_runs,
         "bound_ms": timings[(case, 32)]["bound_ms"],
         "bound_by": timings[(case, 32)]["bound_by"],
         "library_ms": None} for case in lf.CASES]
+
+
+def device_trace(torch, fn):
+    """Run `fn` under torch.profiler and return what ran on the device as
+    {name: count}, kernels and copies alike. Late in a long process the
+    profiler has been seen to lose records (6 of 8 copies, 1 of 3
+    kernels), so a count is a lower bound: what it shows did run, and
+    `count_calls` and the wrappers' launch counts are the exact witnesses
+    beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: int(e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
+
+
+class count_calls:
+    """Count the calls of `module.name` while the block runs: a witness of
+    device->host copies that does not depend on the profiler."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.fn = getattr(self.module, self.name)
+
+        def counted(*args, **kwargs):
+            self.n += 1
+            return self.fn(*args, **kwargs)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def copies(trace, direction: str) -> int:
+    return sum(n for name, n in trace.items()
+               if name.startswith(f"Memcpy {direction}"))
+
+
+def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
+    """The engine path: pcap -> DeviceScanIterator / DeviceScanIndex /
+    LiveDeviceBatcher -> LidarScan and OsfDeviceProjector -> XYZ cache,
+    against the port's ScanBatcher over the same packets. Returns the
+    launches of planar_project<planar> on this path. `staged` holds the
+    planar path's runs: the XYZ of the main capture's frames."""
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.ops.unpack import decode_frame_planar_batch
+
+    info, main_path = captures[MAIN_PROFILE]
+    h, w = info.format.pixels_per_column, info.format.columns_per_frame
+    n_pkts = w // info.format.columns_per_packet
+    path = os.path.join(tmp, "engine.pcap")
+    t0 = time.perf_counter()
+    n_scans = engine_capture(path, main_path, info, 32)
+    print(f"engine capture: the main capture + 3 frames (a lost packet, a "
+          f"straggler, an open last frame), {os.path.getsize(path) / 1e6:.1f}"
+          f" MB in {time.perf_counter() - t0:.1f} s")
+    check(de.supports_device_decode(info), "main profile not eligible")
+
+    # 0. the oracle: the port's ScanBatcher, packet by packet
+    t0 = time.perf_counter()
+    packets = capture_packets(port, info, path)
+    read_s = time.perf_counter() - t0
+    oracle = batcher_scans(port, info, packets)
+    batcher_s = time.perf_counter() - t0 - read_s
+    n_open = n_pkts * 5 // 16
+    check(len(oracle) == n_scans and len(packets) == 34 * n_pkts + n_open,
+          f"oracle: {len(oracle)} scans of {len(packets)} packets")
+    # frame 33 lacks packet 5 and is released by frame 34's first packet;
+    # the straggler is dropped; frame 35 is flushed at the end
+    check(oracle[32][1].packet_timestamp[5] == 0
+          and oracle[32][0] == 33 * n_pkts - 1
+          and oracle[33][1].packet_timestamp.all()
+          and oracle[33][0] == 34 * n_pkts - 1
+          and oracle[34][0] == EOF_RELEASE
+          and np.count_nonzero(oracle[34][1].packet_timestamp) == n_open,
+          "the faults did not land")
+    print(f"oracle: ScanBatcher over {len(packets)} packets -> "
+          f"{len(oracle)} scans in {batcher_s:.2f} s = "
+          f"{batcher_s / n_scans * 1e3:.1f} ms/frame (+ {read_s:.2f} s "
+          f"reading the capture packet by packet) [{CARD}]")
+
+    # 1. DeviceScanIterator on the card, batch 4 (the default) and 32
+    pk.reset_launches()
+    runs = {}
+    for batch in (4, 32):
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        t0 = time.perf_counter()
+        it = de.DeviceScanIterator(path, info, batch=batch)
+        check(it.device.type == "cuda", "DeviceScanIterator did not pick "
+              "cuda")
+        got = list(it.iter_released())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(de.stats["batches"] == -(-n_scans // batch)
+              and de.stats["scans"] == n_scans,
+              f"batch {batch}: stats {de.stats}")
+        hold_scans(got, oracle, f"DeviceScanIterator batch={batch}")
+        print(f"engine end to end, cold, batch={batch}: {n_scans} frames "
+              f"pcap -> LidarScan in {secs:.3f} s = {n_scans / secs:.2f} "
+              f"frames/s [{CARD}]")
+        runs[batch] = (it, got)
+    it, scans = runs[4]
+    s0 = scans[0][1]
+    check(s0.field("RANGE").dtype == np.uint32
+          and s0.field("RANGE").shape == (h, w)
+          and (s0.field("RANGE2") == s0.field("RANGE") // 2).all()
+          and 0 < int((s0.status & 1).sum()) < w,
+          "the first scan is not what was written")
+
+    # 2. DeviceScanIndex: random access equals iteration
+    index = de.DeviceScanIndex(it)
+    check(len(index) == n_scans
+          and index.frame_ids == [s.frame_id for _, s in scans],
+          f"index: {len(index)} scans, ids {index.frame_ids}")
+    t0 = time.perf_counter()
+    picks = (n_scans - 1, 0, 17, 33, 32, 5)
+    n = sum(scans_differ(index.scan_at(i), scans[i][1]) for i in picks)
+    check(n == 0 and all(index.scan_at(i) == scans[i][1] for i in picks),
+          f"DeviceScanIndex.scan_at differs from iteration in {n} elements")
+    print(f"DeviceScanIndex.scan_at {picks}: {n} elements differ from "
+          f"iteration; {(time.perf_counter() - t0) / len(picks) * 1e3:.1f} "
+          f"ms a lookup (stage + copy + decode + copy back one frame) "
+          f"[{CARD}]")
+
+    # 3. the live twin: every packet pushed; scans stay deferred
+    def push_all(live, pkts, timed=None):
+        out = []
+        for _, pkt in pkts:
+            before = de.stats["batches"]
+            t = time.perf_counter()
+            out.extend(live.push(pkt.buf, pkt.host_timestamp))
+            if timed is not None:
+                timed[de.stats["batches"] > before].append(
+                    time.perf_counter() - t)
+        return out
+
+    timed = {False: [], True: []}
+    live_scans = push_all(de.LiveDeviceBatcher(info), packets, timed)
+    torch.cuda.synchronize()
+    check(len(live_scans) == n_scans - 1
+          and all(s.fields_deferred for s in live_scans),
+          f"live: {len(live_scans)} scans, deferred "
+          f"{[s.fields_deferred for s in live_scans]}")
+    print(f"live path: a push {np.median(timed[False]) * 1e3:.4f} ms (median "
+          f"of {len(timed[False])}), a push that flushes a frame "
+          f"{np.median(timed[True]) * 1e3:.2f} ms (median of "
+          f"{len(timed[True])}: group + pinned copy + decode issued, nothing "
+          f"awaited) [{CARD}]")
+    # the trace: a second batcher, the last five frames' pushes under the
+    # profiler
+    split = 30 * n_pkts
+    for _ in range(3):          # a trace that lost every record is retaken
+        live = de.LiveDeviceBatcher(info)
+        held = push_all(live, packets[:split])
+        traced = []
+        with count_calls(de, "_to_host") as readbacks:
+            trace = device_trace(torch, lambda: traced.extend(
+                push_all(live, packets[split:])))
+        check(len(held) == 30 and len(traced) == 4 and readbacks.n == 0
+              and all(s.fields_deferred for s in held + traced),
+              f"live pushes read {readbacks.n} decoded frames back")
+        if trace:
+            break
+    h2d, d2h = copies(trace, "HtoD"), copies(trace, "DtoH")
+    n_kernels = sum(n for name, n in trace.items()
+                    if not name.startswith(("Memcpy", "Memset")))
+    print(f"profile live pushes ({len(packets) - split} packets, "
+          f"{len(traced)} scans released, none touched): {h2d} host->device "
+          f"copies (2 a flush issued), {d2h} device->host copies, "
+          f"{n_kernels} kernels; {readbacks.n} readbacks of a decoded frame")
+    check(d2h == 0 and 0 < h2d <= 2 * len(traced) and n_kernels > 0,
+          f"live pushes copied back to the host, or copied nothing in: "
+          f"{trace}")
+    # the detectors see a readback when there is one: touch one scan
+    for ls in traced[:3]:
+        with count_calls(de, "_to_host") as readbacks:
+            trace = device_trace(torch, lambda: ls.field("RANGE"))
+        check(readbacks.n == 1 and not ls.fields_deferred
+              and traced[3].fields_deferred,
+              "touching a field did not copy that scan back, or copied more")
+        if copies(trace, "DtoH"):
+            break
+    print(f"profile first field access of one live scan: "
+          f"{copies(trace, 'DtoH')} device->host copies, {readbacks.n} "
+          f"readback of a decoded frame")
+    check(copies(trace, "DtoH") > 0,
+          "the profiler saw no device->host copy of a first field access")
+    t0 = time.perf_counter()
+    for ls in live_scans:
+        ls.field("RANGE")
+    touch_s = time.perf_counter() - t0
+    print(f"live path: first field access "
+          f"{touch_s / len(live_scans) * 1e3:.2f} ms/scan (copy back + fill) "
+          f"[{CARD}]")
+    # a live scan carries no release point: borrow the oracle's
+    hold_scans(list(zip((r for r, _ in oracle), live_scans)),
+               oracle[:-1], "LiveDeviceBatcher")
+    n = sum(scans_differ(a, b) for a, (_, b) in zip(live_scans, scans))
+    check(n == 0, f"live scans differ from the iterator's in {n} elements")
+
+    # 4. OsfDeviceProjector: XYZ through the planar kernel, attached
+    de.stats.update(batches=0, scans=0, osf_batches=0)
+    pk.reset_launches()
+    proj = de.OsfDeviceProjector([info], batch=4)
+    check(proj.device.type == "cuda", "OsfDeviceProjector did not pick cuda")
+    entries = [(0, s) for _, s in scans]
+    window_s = []
+    for base in range(0, n_scans, 4):
+        t0 = time.perf_counter()
+        proj.attach(entries[base:base + 4])
+        window_s.append(time.perf_counter() - t0)
+    n_windows = -(-n_scans // 4)
+    check(pk.launches["planar"] == n_windows
+          and sum(pk.launches.values()) == n_windows
+          and de.stats["osf_batches"] == n_windows,
+          f"projector: launches {dict(pk.launches)}, stats {de.stats}")
+    print(f"projector: {n_windows} windows of 4 dual scans (8 range images "
+          f"a launch), {np.median(window_s[1:]) * 1e3:.2f} ms a window "
+          f"(median; the first, with the LUT built, "
+          f"{window_s[0] * 1e3:.1f} ms) [{CARD}]")
+    for attempt in range(3):    # a trace that lost every record is retaken
+        trace = device_trace(torch, lambda: [
+            proj.attach(entries[base:base + 4]) for base in (4, 8, 12)])
+        if trace:
+            break
+    for name, count in trace.items():
+        print(f"profile 3 projector windows: {count} x {name[:96]}")
+    ran = [name for name in trace if not name.startswith("Memcpy")]
+    check(len(ran) == 1 and "planar_project" in ran[0]
+          and 1 <= trace[ran[0]] <= 3,
+          f"projector windows ran {ran}, not planar_project alone")
+    check(pk.launches["planar"] == n_windows + 3 * (attempt + 1),
+          f"traced windows launched {pk.launches['planar'] - n_windows}")
+    launches = n_windows        # on the path's run; the traced ones apart
+    # a sensor with an extrinsic: one launch more a window, for its frame
+    import copy
+    info_ext = copy.deepcopy(info)
+    info_ext.extrinsic = np.array(
+        [[0.0, -1.0, 0.0, 500.0], [1.0, 0.0, 0.0, -250.0],
+         [0.0, 0.0, 1.0, 1500.0], [0.0, 0.0, 0.0, 1.0]])
+    ext_scan = port.LidarScan(scans[1][1])
+    before = pk.launches["planar"]
+    de.OsfDeviceProjector([info_ext], batch=4).attach([(0, ext_scan)])
+    check(pk.launches["planar"] == before + 2,
+          f"extrinsic window launched {pk.launches['planar'] - before}")
+    launches += 2
+
+    # XYZ: against the planar path's kernel on the same frames, the plain
+    # version on the card and the f64 LUT
+    _, pipe, pruns, _ = staged[MAIN_PROFILE]
+    pfids, _, _, _, pout, _, _ = pruns[0]
+    check(list(pfids) == [s.frame_id for _, s in scans[:32]],
+          "the engine capture's first 32 frames are not the main capture's")
+    lut64 = port.make_xyz_lut(info)
+    n_diff = n_plain = 0
+    worst = 0.0
+    for k, (_, ls) in enumerate(scans):
+        for ret, name in enumerate(("RANGE", "RANGE2")):
+            rng = ls.field(name)
+            xyz = ls.cached_xyz(ret, False, rng)
+            check(xyz is not None and xyz.shape == (h, w, 3)
+                  and xyz.dtype == np.float32
+                  and ls.cached_xyz(ret, True, rng) is xyz,
+                  f"scan {k}: no cached XYZ for return {ret}")
+            check(np.isfinite(xyz).all() and (xyz[rng == 0] == 0).all(),
+                  f"scan {k}: XYZ not finite, or not 0 at zero range")
+            if k < 32:
+                want = pout[ret][k].movedim(0, -1).contiguous().cpu().numpy()
+                n_diff += int((xyz.view(np.int32)
+                               != want.view(np.int32)).sum())
+            if k % 8 == 2:
+                r_dev = torch.from_numpy(rng.astype(np.int64)).to(dev)
+                plain = pk._proj_lean(r_dev[None], pipe.planar_lut.stack,
+                                      precision="dd")[0]
+                n_plain += int((xyz.view(np.int32) != plain.movedim(0, -1)
+                                .contiguous().cpu().numpy()
+                                .view(np.int32)).sum())
+                worst = max(worst, ulp_check(
+                    np.moveaxis(xyz, -1, 0)[None],
+                    f64_reference(lut64, rng.astype(np.int64)[None])))
+    check(n_diff == 0 and n_plain == 0 and worst <= 1.0,
+          f"projector XYZ: {n_diff} elements differ from the planar path, "
+          f"{n_plain} from _proj_lean, {worst} ulp from f64")
+    print(f"projector XYZ: {n_diff} elements differ from project_planar's "
+          f"XYZ of the same 32 frames, {n_plain} from the plain _proj_lean "
+          f"on the card (5 scans), within {worst:.3f} f32 ulp of the f64 "
+          f"LUT")
+    ls = scans[2][1]
+    rng = ls.field("RANGE")
+    rng[7, 9] ^= 1
+    check(ls.cached_xyz(0, False, rng) is None
+          and ls.cached_xyz(1, False, ls.field("RANGE2")) is not None,
+          "cached_xyz served a mutated RANGE")
+    rng[7, 9] ^= 1
+    check(ls.cached_xyz(0, False, rng) is not None, "cached_xyz lost")
+
+    # 5. where the time goes, per frame
+    reader = port.FrameReader(path, info, strict_ports=True)
+    t0 = time.perf_counter()
+    reader._scan()
+    scan_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lidar_ev, aux_ev = reader.hybrid_streams()
+    inst = de._AuxRouter(de._AuxApplier(info), reader.plan, reader.pf,
+                         lidar_ev, aux_ev).instances
+    replay_s = time.perf_counter() - t0
+    groups = [i.pkt_idx for i in inst]
+    check(len(groups) == n_scans, f"replay: {len(groups)} instances")
+    t0 = time.perf_counter()
+    for _ in reader.iter_instance_batches(groups, 4):
+        pass
+    stage_s = time.perf_counter() - t0
+    print(f"engine stage capture scan (pcap read + reassembly, every "
+          f"datagram): {scan_s / n_scans * 1e3:.2f} ms/frame [{CARD}]")
+    print(f"engine stage admission replay (hybrid_streams + _AuxRouter): "
+          f"{replay_s / n_scans * 1e3:.3f} ms/frame [{CARD}]")
+    print(f"engine stage instance staging (gather + single-frame grouper): "
+          f"{stage_s / n_scans * 1e3:.2f} ms/frame [{CARD}]")
+    plan, pf = reader.plan, reader.pf
+    for B in (4, 32):
+        batch = next(reader.iter_instance_batches(groups[:B], B))
+        planes_d = pk.words_tensor(batch.planes, dev)
+        hdrs_d = pk.words_tensor(batch.col_hdrs, dev)
+        decoded = decode_frame_planar_batch(planes_d, hdrs_d, plan, True)
+        ms = cuda_ms(lambda: (pk.words_tensor(batch.planes, dev),
+                              pk.words_tensor(batch.col_hdrs, dev)),
+                     iters=10, windows=3, warm=2)[0]
+        print(f"engine stage host->device copy (planes + col_hdrs, "
+              f"pageable) B={B}: {ms / B:.4f} ms/frame [{CARD}]")
+        ms = cuda_ms(lambda: decode_frame_planar_batch(planes_d, hdrs_d,
+                                                       plan, True),
+                     iters=10, windows=3, warm=2)[0]
+        print(f"engine stage decode (plain PyTorch, every field) B={B}: "
+              f"{ms / B:.4f} ms/frame [{CARD}]")
+        best, best_m = float("inf"), float("inf")
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            host = de._to_host(decoded)
+            best = min(best, time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for k in range(B):
+                de.materialize_scan(info, pf, plan, host, k,
+                                    int(batch.frame_ids[k]), batch.pkt_ts[k],
+                                    batch.pkt_hdrs[k], batch.first_hdr[k])
+            best_m = min(best_m, time.perf_counter() - t0)
+        mb = sum(v.nbytes for v in host.values()) / B / 1e6
+        print(f"engine stage device->host copy (every decoded field, "
+              f"{mb:.2f} MB a frame, pageable) B={B}: {best / B * 1e3:.4f} "
+              f"ms/frame [{CARD}]")
+        print(f"engine stage materialization (LidarScan + field copies + "
+              f"headers) B={B}: {best_m / B * 1e3:.3f} ms/frame [{CARD}]")
+    return launches
 
 
 if __name__ == "__main__":

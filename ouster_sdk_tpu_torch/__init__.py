@@ -23,17 +23,38 @@ unpack_project_lutfree (f32), unpack_project_lutfree_dd (double-single,
 one or both returns) and unpack_project_lutfree_planar project XYZ
 straight from either staging (kernels kernels/csrc/lutfree_project.cu).
 
+The device engine: what a user of the SDK iterates. A pcap is scanned
+once (io.frames.pcap_scan), the ScanBatcher's admission state machine is
+replayed over its packets, each admitted frame is staged word-planar,
+copied to the device, decoded there (ops.unpack) and copied back into a
+LidarScan (io.device_engine.DeviceScanIterator, DeviceScanIndex for random
+access), bit-equal to what core.batcher.ScanBatcher makes of the same
+packets. LiveDeviceBatcher is its live twin (packets pushed one by one,
+pixel fields left on the device until first touched), and
+OsfDeviceProjector attaches double-single XYZ to scans whose ranges were
+decoded elsewhere (ops.planar_kernels.project_ranges, the planar kernel
+again).
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
 
 from __future__ import annotations
 
+from .core.batcher import ScanBatcher
 from .core.constants import ChanField
+from .core.field import ChanFieldType, FieldClass, FieldType
+from .core.lidar_scan import (LidarScan, get_field_types,
+                              resolve_field_types)
 from .core.metadata import default_sensor_info, sensor_info_from_metadata
+from .core.packets import ImuPacket, LidarPacket, Packet, ZonePacket
 from .core.types import (DataFormat, HeaderType, LidarMode, SensorInfo,
-                         UDPProfileLidar)
-from .io.frames import FrameReader
+                         UDPProfileIMU, UDPProfileLidar)
+from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
+                               LiveDeviceBatcher, OsfDeviceProjector,
+                               supports_device_decode,
+                               supports_osf_device_projection)
+from .io.frames import FrameReader, PlanarBatch
 from .io.pcap import PcapReader, PcapWriter
 from .ops.destagger import destagger, destagger_torch
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
@@ -45,7 +66,8 @@ from .ops.packet_format import PacketFormat, PacketWriter
 from .ops.packet_kernels import (lut_planes, unpack_project,
                                  unpack_project_packet,
                                  unpack_project_packet_batched)
-from .ops.planar_kernels import (PlanarLut, launches, reset_launches,
+from .ops.planar_kernels import (PlanarLut, launches, project_ranges,
+                                 reset_launches,
                                  unpack_project_planar_batched, words_tensor)
 from .ops.pose import (dewarp, dewarp_np, exp_pose, interp_pose,
                        interp_pose_np, interp_trajectory, log_pose,
@@ -56,22 +78,31 @@ from .ops.unpack import (decode_frame, decode_frame_batch,
 from .ops.xyzlut import (XYZLut, XYZLutDevice, XYZLutFloat, cartesian,
                          cartesian_dd, cartesian_f32, make_xyz_lut,
                          make_xyz_lut_float, to_device_lut)
+from .state import lidar_scan_from_jax, lidar_scan_from_numpy
 
 
 __all__ = [
-    "ChanField", "DataFormat", "FactorTables", "FrameReader", "HeaderType", "LidarMode",
-    "PacketFormat", "PacketWriter", "PcapReader", "PcapWriter",
-    "PipelineConfig", "PlanarLut", "ScanPipeline", "SensorInfo",
-    "UDPProfileLidar", "XYZLut", "XYZLutDevice", "XYZLutFloat", "cartesian",
-    "cartesian_dd", "cartesian_f32", "decode_frame", "decode_frame_batch",
+    "cartesian", "cartesian_dd", "cartesian_f32", "ChanField",
+    "ChanFieldType", "DataFormat", "decode_frame", "decode_frame_batch",
     "decode_frame_planar", "decode_frame_planar_batch", "default_device",
-    "default_sensor_info", "destagger", "destagger_torch", "dewarp",
-    "dewarp_np", "exp_pose", "frame_words_from_packets", "interp_pose",
-    "interp_pose_np", "interp_trajectory", "launches", "log_pose",
-    "lut_planes", "lutfree_supported", "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
-    "reset_launches", "sensor_info_from_metadata", "to_device_lut",
-    "transform", "transform_np", "unpack_project", "unpack_project_packet",
+    "default_sensor_info", "destagger", "destagger_torch",
+    "DeviceScanIndex", "DeviceScanIterator", "dewarp", "dewarp_np",
+    "exp_pose", "FactorTables", "FieldClass", "FieldType",
+    "frame_words_from_packets", "FrameReader", "get_field_types",
+    "HeaderType", "ImuPacket", "interp_pose", "interp_pose_np",
+    "interp_trajectory", "launches", "lidar_scan_from_jax",
+    "lidar_scan_from_numpy", "LidarMode", "LidarPacket", "LidarScan",
+    "LiveDeviceBatcher", "log_pose", "lut_planes", "lutfree_supported",
+    "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
+    "OsfDeviceProjector", "Packet", "PacketFormat", "PacketWriter",
+    "PcapReader", "PcapWriter", "PipelineConfig", "PlanarBatch",
+    "PlanarLut", "project_ranges", "reset_launches", "resolve_field_types",
+    "ScanBatcher", "ScanPipeline", "sensor_info_from_metadata",
+    "SensorInfo", "supports_device_decode",
+    "supports_osf_device_projection", "to_device_lut", "transform",
+    "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unpack_project",
     "unpack_project_lutfree", "unpack_project_lutfree_dd",
-    "unpack_project_lutfree_planar", "unpack_project_packet_batched",
-    "unpack_project_planar_batched", "words_tensor",
+    "unpack_project_lutfree_planar", "unpack_project_packet",
+    "unpack_project_packet_batched", "unpack_project_planar_batched",
+    "words_tensor", "XYZLut", "XYZLutDevice", "XYZLutFloat", "ZonePacket",
 ]

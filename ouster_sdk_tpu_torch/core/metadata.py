@@ -1,11 +1,11 @@
-"""Metadata parsing: the sections the planar slice reads.
+"""Metadata parsing: the sections the port reads.
 
 Handles the sectioned layout ($.sensor_info / $.config_params /
 $.lidar_data_format / $.beam_intrinsics / $.lidar_intrinsics) and the
 legacy flat layout (fw 1.12 - 2.1) by converting legacy to the sectioned
 shape first (ref: ouster_client/src/metadata.cpp:914-983). Sections the
-slice does not need (IMU and zone configuration, calibration status,
-the long tail of config params) are ignored.
+port does not need (IMU intrinsics, the zone set, calibration status, the
+long tail of config params) are ignored.
 """
 
 from __future__ import annotations
@@ -256,6 +256,8 @@ def sensor_info_from_metadata(json_data: Union[str, Dict[str, Any]]
     info.init_id = _int_or(si.get("initialization_id"), 0) or 0
     info.prod_line = si.get("prod_line") or ""
     info.sn = _int_or(si.get("prod_sn"), 0) or 0
+    info.fw_rev = si.get("build_rev") or ""
+    info.image_rev = si.get("image_rev") or ""
 
     cp = root.get("config_params") or {}
     info.config.udp_dest = cp.get("udp_dest")
@@ -264,6 +266,8 @@ def sensor_info_from_metadata(json_data: Union[str, Dict[str, Any]]
         info.config.udp_dest = cp["udp_ip"]
     info.config.udp_port_lidar = _int_or(cp.get("udp_port_lidar"), None)
     info.config.udp_port_imu = _int_or(cp.get("udp_port_imu"), None)
+    info.config.udp_port_zm = _int_or(cp.get("udp_port_zm"), None)
+    info.config.udp_dest_zm = cp.get("udp_dest_zm")
     if cp.get("lidar_mode") is not None:
         info.config.lidar_mode = LidarMode.from_string(str(cp["lidar_mode"]))
 
@@ -301,6 +305,12 @@ def sensor_info_from_metadata(json_data: Union[str, Dict[str, Any]]
     ext = _get(root, "ouster-sdk", "extrinsic")
     if ext is not None and np.asarray(ext).size == 16:
         info.extrinsic = np.asarray(ext, dtype=np.float64).reshape(4, 4)
+
+    # zone monitoring also engages via a configured zone-monitoring
+    # destination (ref: metadata.cpp:650-656)
+    if (info.config.udp_dest_zm or "") and \
+            (info.config.udp_port_zm or 0) != 0:
+        info.format.zone_monitoring_enabled = True
 
     # lidar stream disabled: port 0 or an empty udp_dest means no lidar
     # packets will arrive (ref: metadata.cpp:658-665)

@@ -1,9 +1,11 @@
-"""Sensor metadata model: the subset of the SDK types the planar slice needs.
+"""Sensor metadata model: the subset of the SDK types the port needs.
 
 Profiles, header flavours and lidar modes (ref: ouster_client/include/
 ouster/types.h:87-97, 304, 433), the frame geometry `DataFormat`
-(types.h:830-857) and the `SensorInfo` fields that decode and projection
-read: format, beam angles and transforms, extrinsic, ids and lidar mode
+(types.h:830-857), the frame-status enums, the firmware `Version` and the
+`SensorInfo` fields that decode, projection and scan batching read: format,
+beam angles and transforms, extrinsic, ids, firmware revision, lidar mode
+and the destination ports of the lidar, IMU and zone streams
 (types.h:985-1108). Matrices are float64 numpy arrays; the device carries
 hi/lo float32 splits derived from them (see ops/xyzlut.py).
 """
@@ -49,6 +51,24 @@ class UDPProfileIMU(Enum):
     OFF = "OFF"
 
 
+class ShotLimitingStatus(Enum):
+    NORMAL = 0
+    IMMINENT = 1
+    REDUCTION_0_10 = 2
+    REDUCTION_10_20 = 3
+    REDUCTION_20_30 = 4
+    REDUCTION_30_40 = 5
+    REDUCTION_40_50 = 6
+    REDUCTION_50_60 = 7
+    REDUCTION_60_70 = 8
+    REDUCTION_70_75 = 9
+
+
+class ThermalShutdownStatus(Enum):
+    NORMAL = 0
+    IMMINENT = 1
+
+
 class HeaderType(Enum):
     """Lidar packet header flavour (ref: types.h:433)."""
 
@@ -79,6 +99,49 @@ class LidarMode:
         return f"{self.columns}x{self.fps}"
 
 
+@dataclass(frozen=True, order=True)
+class Version:
+    """Semantic firmware version (ref: types.h:1580)."""
+
+    major: int = 0
+    minor: int = 0
+    patch: int = 0
+    stage: str = ""
+    machine: str = ""
+    prerelease: str = ""
+    build: str = ""
+
+    @classmethod
+    def from_string(cls, s: str) -> "Version":
+        """Parse version strings like 'v2.3.0',
+        'ousteros-image-prod-aries-v2.0.0-rc.2+123', '1.14.0-beta.1'
+        (ref: types.cpp:751-774 version_from_string): an optional
+        '<stage>-<machine>-' pair directly before the semver carries the
+        build stage and machine; empty major/minor/patch parse invalid
+        (all zeros)."""
+        import re
+
+        m = re.search(
+            r"(([\w\d]*)-([\w\d]*)-)?v?(\d*)\.(\d*)\.(\d*)"
+            r"-?([\d\w.]*)?\+?([\d\w.]*)?",
+            s.strip(),
+        )
+        if not m or not (m.group(4) and m.group(5) and m.group(6)):
+            return cls()
+        return cls(
+            major=int(m.group(4)),
+            minor=int(m.group(5)),
+            patch=int(m.group(6)),
+            stage=m.group(2) or "",
+            machine=m.group(3) or "",
+            prerelease=m.group(7) or "",
+            build=m.group(8) or "",
+        )
+
+    def __bool__(self) -> bool:
+        return (self.major, self.minor, self.patch) != (0, 0, 0)
+
+
 def _identity4() -> np.ndarray:
     return np.eye(4, dtype=np.float64)
 
@@ -100,14 +163,34 @@ class DataFormat:
     imu_packets_per_frame: int = 0
     zone_monitoring_enabled: bool = False
 
+    def lidar_packets_per_frame(self) -> int:
+        """Packets needed to cover the column window; 0 when the lidar
+        stream is disabled (ref: types.cpp:725-727)."""
+        if self.udp_profile_lidar == UDPProfileLidar.OFF:
+            return 0
+        if self.columns_per_packet == 0:
+            return 0
+        start, end = self.column_window
+        if start <= end:
+            first = start // self.columns_per_packet
+            last = end // self.columns_per_packet
+            return last - first + 1
+        # wrapped window: packets from start..end going through 0
+        n_pkts = self.columns_per_frame // self.columns_per_packet
+        first = (end // self.columns_per_packet) + 1
+        last = start // self.columns_per_packet
+        return n_pkts - (last - first)
+
 
 @dataclass
 class SensorConfig:
-    """The configuration knobs the slice reads (ref: types.h:613-821)."""
+    """The configuration knobs the port reads (ref: types.h:613-821)."""
 
     udp_dest: Optional[str] = None
+    udp_dest_zm: Optional[str] = None
     udp_port_lidar: Optional[int] = None
     udp_port_imu: Optional[int] = None
+    udp_port_zm: Optional[int] = None
     lidar_mode: Optional[LidarMode] = None
 
 
@@ -117,6 +200,8 @@ class SensorInfo:
     metadata string by core/metadata.py."""
 
     sn: int = 0
+    fw_rev: str = ""
+    image_rev: str = ""
     prod_line: str = ""
     format: DataFormat = dc_field(default_factory=DataFormat)
     beam_azimuth_angles: List[float] = dc_field(default_factory=list)
@@ -128,6 +213,9 @@ class SensorInfo:
     extrinsic: np.ndarray = dc_field(default_factory=_identity4)
     init_id: int = 0
     config: SensorConfig = dc_field(default_factory=SensorConfig)
+
+    def get_version(self) -> Version:
+        return Version.from_string(self.image_rev or self.fw_rev)
 
     @property
     def w(self) -> int:

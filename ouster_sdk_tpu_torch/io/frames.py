@@ -7,12 +7,12 @@ measurement id (m_id // columns-per-packet), gaps zero-filled, the last
 packet of a slot winning. It is what ScanPipeline.__call__/batch and the
 packet projection take.
 
-Word-planar staging is the layout the planar projection kernel reads:
-pixel word k of pixel row p at column C lands at planes[k, p, C]
-((pw, h, W) u32 per frame) and column-header word q at col_hdrs[q, C]
-((schw, W) u32), so the device needs no transpose. LEGACY keeps its 32-bit
-column status in the column FOOTER, which is staged as one extra
-col-header row after the chw header words (schw = chw + 1).
+Word-planar staging is the layout the planar projection kernel and the
+planar decode read: pixel word k of pixel row p at column C lands at
+planes[k, p, C] ((pw, h, W) u32 per frame) and column-header word q at
+col_hdrs[q, C] ((schw, W) u32), so the device needs no transpose. LEGACY
+keeps its 32-bit column status in the column FOOTER, which is staged as one
+extra col-header row after the chw header words (schw = chw + 1).
 
 Frame grouping follows the batcher's frame-id semantics
 (ref: lidar_scan.cpp:1505-1591), as the SDK's native planar grouper does:
@@ -20,19 +20,169 @@ a new frame id closes the frame being built, except that a packet of the
 previous id (a straggler of the frame just released) is dropped. Packets
 land in their slot by measurement id; slots no packet filled stay zero,
 and so decode as invalid columns.
+
+Two functions stand in for the SDK's native host library, with its
+contracts: `pcap_scan` (one pass over a capture: every reassembled UDP
+datagram with its size, host timestamp and ports) and
+`group_frames_planar` (word-planar grouping of a packet run, with the
+per-packet scan headers the device engine materializes LidarScans from).
+The device engine's staging, `hybrid_streams` and `iter_instance_batches`,
+is built on them.
 """
 
 from __future__ import annotations
 
+import os
+from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.types import SensorInfo
+from ..core.types import SensorInfo, UDPProfileIMU, UDPProfileLidar
 from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.unpack import (DecodePlan, frame_words_from_packets,
                           make_decode_plan)
 from .pcap import PcapReader
+
+
+@dataclass
+class PlanarBatch:
+    """One chunk of word-planar staged frames plus every scan header the
+    batcher materializes (ref: lidar_scan.cpp:1324-1372 per-packet
+    headers, :1546-1552 frame status): everything the device engine needs
+    to build LidarScans bit-equal to ScanBatcher's."""
+
+    frame_ids: np.ndarray   # (m,) i64
+    planes: np.ndarray      # (m, pw, h, w) u32
+    col_hdrs: np.ndarray    # (m, schw, w) u32
+    host_ts: np.ndarray     # (m,) u64, first packet's host timestamp
+    pkt_ts: np.ndarray      # (m, n_pkts) u64, host ts by packet slot
+    pkt_hdrs: np.ndarray    # (m, n_pkts, hw) u32, packet header words
+    first_hdr: np.ndarray   # (m, hw) u32, opening packet's header
+
+
+def _pipelined(make_iter, depth: int, on_close=None) -> Iterator:
+    """Run `make_iter()` on a background staging thread, queueing up to
+    `depth` items ahead of the consumer, so staging overlaps the
+    consumer's host->device copy and device work (numpy releases the
+    interpreter lock inside its copies). Exceptions surface on the
+    consumer side; closing the generator joins the producer. `on_close`
+    runs in the CONSUMER's finally, after the join: resource check-in
+    (pool freelists) must happen there, not in the producer's finally,
+    because when the producer exhausts, up to `depth` yielded items whose
+    arrays view those pools are still queued unread."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+    done = object()
+    err: List[BaseException] = []
+
+    def produce():
+        it = None
+        try:
+            it = make_iter()
+            for item in it:
+                while not stop.is_set():
+                    try:
+                        q.put(item, timeout=0.2)
+                        break
+                    except queue.Full:
+                        continue
+                if stop.is_set():
+                    return
+        except BaseException as e:  # surfaced on the consumer side
+            err.append(e)
+        finally:
+            if it is not None:
+                # deterministic close so the producer's finally blocks
+                # run now, not at garbage collection
+                getattr(it, "close", lambda: None)()
+            while not stop.is_set():
+                try:
+                    q.put(done, timeout=0.2)
+                    break
+                except queue.Full:
+                    continue
+
+    def consume():
+        t = threading.Thread(target=produce, daemon=True,
+                             name="frame-staging")
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                yield item
+        finally:
+            stop.set()
+            t.join()
+            if on_close is not None:
+                on_close()
+        if err:
+            raise err[0]
+
+    return consume()
+
+
+def pcap_scan(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
+                                  np.ndarray, np.ndarray, np.ndarray]:
+    """One pass over a capture: (payloads u8, offsets i64, sizes i64,
+    ts u64, ports u32, dst_ips u32), one entry per reassembled UDP
+    datagram of ANY stream, in capture order. `payloads` is the
+    concatenation of the UDP payloads, `ports` packs src << 16 | dst,
+    `ts` is the capture time in nanoseconds of the record that completed
+    the datagram, `dst_ips` the IPv4 destination read little-endian (an
+    IPv6 destination folded by xor). The position of a datagram in these
+    arrays is the index the device engine stages packets by and orders
+    released scans by."""
+    bufs: List[bytes] = []
+    sizes: List[int] = []
+    ts: List[int] = []
+    ports: List[int] = []
+    ips: List[int] = []
+    if os.path.getsize(path) >= 24:
+        with PcapReader(path) as reader:
+            for pi, payload in reader:
+                bufs.append(bytes(payload))
+                sizes.append(len(payload))
+                ts.append(pi.timestamp)
+                ports.append((pi.src_port << 16) | pi.dst_port)
+                ips.append(_ip_key(pi.dst_ip))
+    sizes_a = np.asarray(sizes, dtype=np.int64)
+    offsets = np.zeros(len(bufs), dtype=np.int64)
+    if len(bufs) > 1:
+        np.cumsum(sizes_a[:-1], out=offsets[1:])
+    return (np.frombuffer(b"".join(bufs), dtype=np.uint8), offsets, sizes_a,
+            np.asarray(ts, dtype=np.uint64),
+            np.asarray(ports, dtype=np.uint32),
+            np.asarray(ips, dtype=np.uint32))
+
+
+def _ip_key(ip: str) -> int:
+    if "." in ip:
+        return int.from_bytes(bytes(int(x) for x in ip.split(".")), "little")
+    raw = bytes.fromhex(ip)
+    key = 0
+    for k in range(0, len(raw), 4):
+        key ^= int.from_bytes(raw[k:k + 4], "little")
+    return key
+
+
+def _gather_packets(payloads: np.ndarray, offs: np.ndarray, size: int
+                    ) -> np.ndarray:
+    """The datagrams of `size` bytes at `offs` as (n, size // 4) u32 words:
+    a view where they lie back to back (a capture of one stream), else a
+    copy made by one gather; no per-packet loop either way."""
+    if offs.size == 0:
+        return np.zeros((0, size // 4), np.uint32)
+    first, n = int(offs[0]), offs.size
+    if first % 4 == 0 and (np.diff(offs) == size).all():
+        return payloads[first:first + n * size].view("<u4").reshape(n, -1)
+    rows = np.lib.stride_tricks.sliding_window_view(payloads, size)[offs]
+    return rows.view("<u4")
 
 
 def _last_occurrence(dest: np.ndarray) -> np.ndarray:
@@ -42,84 +192,386 @@ def _last_occurrence(dest: np.ndarray) -> np.ndarray:
     return dest.size - 1 - rev
 
 
-class FrameReader:
-    """Stage one sensor's lidar frames from a pcap, word-planar."""
+def _stage(plan: DecodePlan, pk: np.ndarray, word_sel: np.ndarray,
+           planes: np.ndarray, hdrs: np.ndarray) -> None:
+    """Scatter one frame's packets (n, pkt_words) into its planar slot:
+    planes (len(word_sel), h, W) and hdrs (schw, W), zeroed by the
+    caller."""
+    n, cpp, W = pk.shape[0], plan.cpp, plan.w
+    cols = pk[:, plan.hw:plan.hw + cpp * plan.cw].reshape(n, cpp, plan.cw)
+    mids = (cols[:, :, plan.mid_word] & 0xFFFF).astype(np.int64)
+    ftr = plan.schw - plan.chw
+    hdr_words = cols[:, :, :plan.chw]
+    if ftr:
+        hdr_words = np.concatenate(
+            [hdr_words, cols[:, :, plan.cw - ftr:]], axis=2)
+    hdr_words = hdr_words.reshape(n * cpp, plan.schw)
+    dest = mids.reshape(-1)
+    ok = np.nonzero(dest < W)[0]
+    sel = ok[_last_occurrence(dest[ok])]
+    hdrs[:, dest[sel]] = hdr_words[sel].T
 
-    def __init__(self, pcap_path: str, info: SensorInfo):
+    # pixel columns: an aligned packet fills cpp consecutive columns
+    # from its first column's id; any other packet scatters per column
+    mid0 = mids[:, :1]
+    aligned = (mid0 + cpp <= W) & (mid0 % cpp == 0)
+    pdest = np.where(aligned, mid0 + np.arange(cpp), mids).reshape(-1)
+    ok = np.nonzero(pdest < W)[0]
+    sel = ok[_last_occurrence(pdest[ok])]
+    pix = cols[:, :, plan.chw:plan.chw + plan.h * plan.pw].reshape(
+        n * cpp, plan.h, plan.pw)
+    planes[:, :, pdest[sel]] = np.transpose(
+        pix[sel][:, :, word_sel], (2, 1, 0))
+
+
+def _group(fids: np.ndarray, mask: int, max_frames: Optional[int] = None,
+           released: int = -1) -> Tuple[List[np.ndarray], int, int]:
+    """Packet indices of each frame of a packet run, by the batcher's id
+    semantics: while frame F builds, a packet of id F-1 is a straggler of
+    the frame just released and is dropped; any other id closes F and
+    opens a new frame. Before the first frame opens, duplicates and
+    one-older stragglers of `released` (the frame an earlier, resumed call
+    released) are dropped. Stops before opening frame max_frames + 1.
+    Returns (frames, packets consumed, released id to carry over)."""
+    frames: List[List[int]] = []
+    cur = -1
+    i = 0
+    for i, fid in enumerate(fids.tolist()):
+        if fid != cur:
+            if cur >= 0 and fid == ((cur - 1) & mask):
+                continue  # straggler from the frame just released
+            if cur < 0 and released >= 0 and (
+                    fid == released or released == ((fid + 1) & mask)):
+                continue  # duplicate / straggler right after a close
+            if cur >= 0:
+                released = cur
+            if max_frames is not None and len(frames) >= max_frames:
+                break     # resume from packet i in the next call
+            frames.append([])
+            cur = fid
+        frames[-1].append(i)
+    else:
+        i = fids.size
+    return [np.asarray(f, dtype=np.int64) for f in frames], i, released
+
+
+def group_frames_planar(pk_words: np.ndarray, ts: Optional[np.ndarray],
+                        pf: PacketFormat, plan: DecodePlan,
+                        out_planes: np.ndarray, out_colhdr: np.ndarray,
+                        out_fids: np.ndarray, out_ts: np.ndarray,
+                        word_sel: Optional[np.ndarray] = None,
+                        out_pkt_ts: Optional[np.ndarray] = None,
+                        out_pkt_hdrs: Optional[np.ndarray] = None,
+                        out_first_hdr: Optional[np.ndarray] = None,
+                        io_released: Optional[np.ndarray] = None
+                        ) -> Tuple[int, int]:
+    """Word-planar grouping of a run of lidar packets, pk_words
+    (n, pkt_words) u32 with host timestamps ts (n,) u64 or None, into
+    out_planes (max_frames, pw | len(word_sel), h, w) u32 and out_colhdr
+    (max_frames, schw, w) u32 (the LEGACY status footer staged as the
+    extra row), with per-frame id (out_fids) and first packet's timestamp
+    (out_ts); every output is reused across calls and zeroed here for the
+    frames it emits. Grouping and the resume contract are `_group`'s:
+    io_released (1,) i64, -1 = none, carries the released frame id across
+    resumed calls.
+
+    Optional scan headers: out_pkt_ts (max_frames, n_pkts) u64, host
+    timestamp by packet slot; out_pkt_hdrs (max_frames, n_pkts, hw) u32,
+    packet header words by packet slot (alert flags, init id and serial
+    live there); out_first_hdr (max_frames, hw) u32, the header of the
+    packet that OPENED the frame in arrival order (frame status and
+    countdowns come from it, ref: lidar_scan.cpp:1546-1552). A packet
+    whose slot lies outside the frame stamps neither; of several packets
+    of one slot the last wins, a zero timestamp included.
+
+    Returns (packets consumed, frames emitted)."""
+    max_frames = out_planes.shape[0]
+    sel_words = (np.arange(plan.pw) if word_sel is None
+                 else np.asarray(word_sel, dtype=np.int64))
+    fids = read_bits(pk_words, pf.geom.frame_id).astype(np.int64)
+    released = int(io_released[0]) if io_released is not None else -1
+    frames, consumed, released = _group(fids, pf.max_frame_id, max_frames,
+                                        released)
+    if io_released is not None:
+        io_released[0] = released
+    for k, idx in enumerate(frames):
+        pk = pk_words[idx]
+        out_planes[k] = 0
+        out_colhdr[k] = 0
+        out_fids[k] = fids[idx[0]]
+        out_ts[k] = ts[idx[0]] if ts is not None else 0
+        _stage(plan, pk, sel_words, out_planes[k], out_colhdr[k])
+        if out_first_hdr is not None:
+            out_first_hdr[k] = pk[0, :plan.hw]
+        if out_pkt_ts is None and out_pkt_hdrs is None:
+            continue
+        slot = (pk[:, plan.hw + plan.mid_word] & 0xFFFF).astype(
+            np.int64) // plan.cpp
+        ok = np.nonzero(slot < plan.n_pkts)[0]
+        win = ok[_last_occurrence(slot[ok])]
+        if out_pkt_ts is not None:
+            out_pkt_ts[k] = 0
+            if ts is not None:
+                out_pkt_ts[k, slot[win]] = ts[idx[win]]
+        if out_pkt_hdrs is not None:
+            out_pkt_hdrs[k] = 0
+            out_pkt_hdrs[k, slot[win]] = pk[win, :plan.hw]
+    return consumed, len(frames)
+
+
+class FrameReader:
+    """Stage one sensor's lidar frames from a pcap.
+
+    `strict_ports` applies a configured udp_port_lidar unconditionally,
+    the classification rule of packet-by-packet reading that the device
+    engine must match; the default keeps the leniency for relocated
+    captures: the port filters only when the capture carries it."""
+
+    def __init__(self, pcap_path: str, info: SensorInfo,
+                 strict_ports: bool = False):
         self.info = info
-        self.pf = PacketFormat(info)
+        self.pf = PacketFormat.from_info(info)
         self.plan: DecodePlan = make_decode_plan(info)
         self._path = pcap_path
+        self._strict_ports = strict_ports
+        self.id_error_count = 0
+        # the cached capture scan and the freelists of staging pools
+        self._pools: dict = {}
+
+    # -- the capture scan ---------------------------------------------------
+    def _scan(self):
+        """pcap_scan of this reader's capture, cached by file size and
+        modification time: replaying the same capture (indexed re-reads,
+        a second iteration) skips the whole pass."""
+        st = os.stat(self._path)
+        key = (st.st_size, st.st_mtime_ns)
+        cached = self._pools.get("scan_cache")
+        if cached is not None and cached[0] == key:
+            return cached[1]
+        res = pcap_scan(self._path)
+        self._pools["scan_cache"] = (key, res)
+        return res
+
+    def _stream_mask(self, sizes: np.ndarray, ports: np.ndarray,
+                     size: int, port: int, strict: bool) -> np.ndarray:
+        """Datagrams of one of this sensor's streams: packet size plus the
+        metadata's destination port (ports pack src << 16 | dst). `strict`
+        applies a configured port unconditionally; non-strict keeps the
+        lidar stream's leniency for relocated captures whose metadata port
+        never appears."""
+        m = sizes == size
+        if port:
+            pm = (ports & np.uint32(0xFFFF)) == np.uint32(port)
+            if strict or (m & pm).any():
+                m = m & pm
+        return m
+
+    def _lidar_mask(self, sizes: np.ndarray, ports: np.ndarray) -> np.ndarray:
+        """Datagrams belonging to THIS sensor's lidar stream: packet size
+        plus the metadata's udp_port_lidar (multi-sensor captures share
+        packet sizes). Strictness per the constructor's `strict_ports`."""
+        return self._stream_mask(sizes, ports, self.pf.lidar_packet_size,
+                                 self.info.config.udp_port_lidar or 0,
+                                 strict=self._strict_ports)
 
     def _lidar_packets(self) -> Tuple[np.ndarray, np.ndarray]:
         """All lidar datagrams of this sensor, in capture order: words
-        (n, pkt_words) u32 and host timestamps (n,) u64. A datagram is
-        lidar by its size; a configured udp_port_lidar filters only when
-        the capture carries that port (relocated captures keep working)."""
-        size = self.pf.lidar_packet_size
-        port = self.info.config.udp_port_lidar or 0
-        bufs: List[bytes] = []
-        ts: List[int] = []
-        ports: List[int] = []
-        with PcapReader(self._path) as reader:
-            for pi, payload in reader:
-                if len(payload) == size:
-                    bufs.append(bytes(payload))
-                    ts.append(pi.timestamp)
-                    ports.append(pi.dst_port)
-        keep = np.ones(len(bufs), dtype=bool)
-        if port:
-            match = np.asarray(ports, dtype=np.int64) == port
-            if match.any():
-                keep = match
-        words = np.frombuffer(b"".join(bufs), dtype="<u4").reshape(
-            len(bufs), size // 4)
-        return words[keep], np.asarray(ts, dtype=np.uint64)[keep]
+        (n, pkt_words) u32 and host timestamps (n,) u64."""
+        payloads, offsets, sizes, ts, ports, _ = self._scan()
+        lidar = self._lidar_mask(sizes, ports)
+        return (_gather_packets(payloads, offsets[lidar],
+                                self.pf.lidar_packet_size), ts[lidar])
 
-    def _group(self, fids: np.ndarray) -> List[np.ndarray]:
-        """Packet indices of each frame, by the batcher's id semantics."""
-        mask = (1 << self.pf.geom.frame_id.bit_size) - 1
-        frames: List[List[int]] = []
-        cur = -1
-        for i, fid in enumerate(fids.tolist()):
-            if fid != cur:
-                if cur >= 0 and fid == ((cur - 1) & mask):
-                    continue  # straggler from the frame just released
-                frames.append([])
-                cur = fid
-            frames[-1].append(i)
-        return [np.asarray(f, dtype=np.int64) for f in frames]
+    # -- the device engine's staging ------------------------------------------
+    def _aux_streams(self) -> List[Tuple[str, int, int]]:
+        """(kind, packet_size, port) for the aux streams this sensor's
+        profile carries (hybrid device route)."""
+        pf, fmt = self.pf, self.info.format
+        wanted = []
+        if fmt.udp_profile_imu == UDPProfileIMU.ACCEL32_GYRO32_NMEA and \
+                pf.imu_packet_size:
+            wanted.append(("imu", pf.imu_packet_size,
+                           self.info.config.udp_port_imu or 0))
+        if fmt.zone_monitoring_enabled and pf.zone_packet_size:
+            wanted.append(("zone", pf.zone_packet_size,
+                           self.info.config.udp_port_zm or 0))
+        return wanted
 
-    def _stage(self, pk: np.ndarray, word_sel: np.ndarray,
-               planes: np.ndarray, hdrs: np.ndarray) -> None:
-        """Scatter one frame's packets (n, pkt_words) into its planar slot."""
+    def hybrid_streams(self, soft_id_check: bool = False) -> Tuple[
+            Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray],
+            List[Tuple[int, str, int, np.ndarray, int]]]:
+        """The capture's packet stream reduced to the two halves of the
+        device engine's admission replay (device_engine._AuxRouter), both
+        in datagram order:
+
+        - lidar: (idx, fid, packet_slot, host_ts) parallel numpy arrays
+          for every lidar datagram that survives the port and id filters,
+          from vectorized header gathers;
+        - aux: [(idx, kind, fid, payload, host_ts), ...] for every IMU /
+          zone datagram (few per frame), classified by its configured
+          port, strictly.
+
+        `idx` is the datagram's position in the capture scan, the index
+        iter_instance_batches stages packets by. Sets `id_error_count`;
+        packets whose init id or serial contradicts the metadata are
+        dropped unless `soft_id_check`."""
+        empty = (np.zeros(0, np.int64), np.zeros(0, np.int64),
+                 np.zeros(0, np.int64), np.zeros(0, np.uint64))
+        payloads, offsets, sizes, ts, ports, _ = self._scan()
+        pf, plan = self.pf, self.plan
+
+        lidar = self._lidar_mask(sizes, ports)
+        lidx = np.nonzero(lidar)[0]
+        offs = offsets[lidar]
+        if lidx.size:
+            idmask = self.id_check_mask(payloads, offs)
+            self.id_error_count = int((~idmask).sum())
+            if not soft_id_check and self.id_error_count:
+                lidx, offs = lidx[idmask], offs[idmask]
+        if lidx.size:
+            fids = self._vec_header_field(
+                payloads, offs, pf.geom.frame_id).astype(np.int64)
+            slots = (self._vec_first_mid(payloads, offs).astype(np.int64)
+                     // plan.cpp)
+            lidar_ev = (lidx, fids, slots, ts[lidx])
+        else:
+            lidar_ev = empty
+        aux_ev: List[Tuple[int, str, int, np.ndarray, int]] = []
+        for kind, size, port in self._aux_streams():
+            m = self._stream_mask(sizes, ports, size, port, strict=True)
+            for idx in np.nonzero(m)[0]:
+                buf = payloads[offsets[idx]:offsets[idx] + size].copy()
+                aux_ev.append((int(idx), kind, int(pf.frame_id(buf)),
+                               buf, int(ts[idx])))
+        aux_ev.sort(key=lambda t: t[0])
+        return lidar_ev, aux_ev
+
+    def _vec_header_field(self, payloads: np.ndarray, offs: np.ndarray,
+                          finfo) -> np.ndarray:
+        """Vectorized packet-header bitfield: value of `finfo` for every
+        packet at `offs` (u64), from one 8-byte gather a packet."""
+        byte, shift = divmod(int(finfo.bit_start), 8)
+        idx = offs[:, None] + byte + np.arange(8)
+        v = payloads[idx].astype(np.uint64)
+        v = (v << (np.arange(8, dtype=np.uint64) * np.uint64(8))).sum(
+            axis=1, dtype=np.uint64)
+        v >>= np.uint64(shift)
+        if finfo.bit_size < 64:
+            v &= np.uint64((1 << finfo.bit_size) - 1)
+        return v
+
+    def _vec_first_mid(self, payloads: np.ndarray, offs: np.ndarray
+                       ) -> np.ndarray:
+        """First column's measurement id for every packet at `offs`
+        (vectorized 2-byte little-endian gather, u16)."""
+        mid_off = self.pf.packet_header_size + self.plan.mid_word * 4
+        return (payloads[offs[:, None] + mid_off
+                         + np.arange(2)].astype(np.uint16)
+                * np.array([1, 256], np.uint16)).sum(axis=1)
+
+    def id_check_mask(self, payloads: np.ndarray, offs: np.ndarray
+                      ) -> np.ndarray:
+        """Per-packet init_id/serial validation against the metadata, the
+        vectorized twin of LidarPacket.validate (ref: packet.h:205):
+        False where a nonzero packet id contradicts a nonzero metadata
+        id. LEGACY has no ids in the header: all True."""
+        ok = np.ones(offs.size, dtype=bool)
+        if self.info.format.udp_profile_lidar == UDPProfileLidar.LEGACY:
+            return ok
+        if self.info.init_id:
+            pkt = self._vec_header_field(payloads, offs,
+                                         self.pf.geom.init_id)
+            ok &= (pkt == 0) | (pkt == np.uint64(self.info.init_id))
+        if self.info.sn:
+            pkt = self._vec_header_field(payloads, offs,
+                                         self.pf.geom.prod_sn)
+            ok &= (pkt == 0) | (pkt == np.uint64(self.info.sn))
+        return ok
+
+    def _checkout_inst_pools(self, chunk: int, pool_depth: int):
+        """Check out (key, pools) for an instance-batch iteration; check
+        back in with `self._pools[key].append(pools)` once no yielded
+        view can be read anymore."""
         plan = self.plan
-        n, cpp, W = pk.shape[0], plan.cpp, plan.w
-        cols = pk[:, plan.hw:plan.hw + cpp * plan.cw].reshape(n, cpp, plan.cw)
-        mids = (cols[:, :, plan.mid_word] & 0xFFFF).astype(np.int64)
-        ftr = plan.schw - plan.chw
-        hdr_words = cols[:, :, :plan.chw]
-        if ftr:
-            hdr_words = np.concatenate(
-                [hdr_words, cols[:, :, plan.cw - ftr:]], axis=2)
-        hdr_words = hdr_words.reshape(n * cpp, plan.schw)
-        dest = mids.reshape(-1)
-        ok = np.nonzero(dest < W)[0]
-        sel = ok[_last_occurrence(dest[ok])]
-        hdrs[:, dest[sel]] = hdr_words[sel].T
+        key = ("inst", chunk, pool_depth)
+        free = self._pools.setdefault(key, [])
+        pools = free.pop() if free else [(
+            np.zeros((chunk, plan.pw, plan.h, plan.w), np.uint32),
+            np.zeros((chunk, plan.schw, plan.w), np.uint32),
+            np.zeros((chunk, plan.n_pkts), np.uint64),
+            np.zeros((chunk, plan.n_pkts, plan.hw), np.uint32),
+            np.zeros((chunk, plan.hw), np.uint32),
+        ) for _ in range(pool_depth)]
+        return key, pools
 
-        # pixel columns: an aligned packet fills cpp consecutive columns
-        # from its first column's id; any other packet scatters per column
-        mid0 = mids[:, :1]
-        aligned = (mid0 + cpp <= W) & (mid0 % cpp == 0)
-        pdest = np.where(aligned, mid0 + np.arange(cpp), mids).reshape(-1)
-        ok = np.nonzero(pdest < W)[0]
-        sel = ok[_last_occurrence(pdest[ok])]
-        pix = cols[:, :, plan.chw:plan.chw + plan.h * plan.pw].reshape(
-            n * cpp, plan.h, plan.pw)
-        planes[:, :, pdest[sel]] = np.transpose(
-            pix[sel][:, :, word_sel], (2, 1, 0))
+    def iter_instance_batches(self, groups: List[np.ndarray],
+                              chunk: int = 4, pool_depth: int = 2,
+                              _pools=None) -> Iterator[PlanarBatch]:
+        """Stage explicit per-frame packet groups as planar scan batches:
+        slot k of each yielded PlanarBatch is the k-th group (a numpy
+        array of datagram indices into the capture scan), packed by one
+        single-frame grouper call a group. The device engine uses this so
+        that its admission replay, which has already decided exactly which
+        lidar packets belong to which frame instance, drives the staging;
+        re-deriving boundaries from the lidar stream alone cannot see
+        aux-induced boundaries or aux-gated completion
+        (ref: lidar_scan.cpp:1505-1617).
 
+        Pool buffers are pageable numpy arrays, checked out per iterator
+        and returned on close, so concurrent iterations of one reader
+        never write into each other's yielded views; a yielded batch's
+        arrays stay valid for pool_depth - 1 further iterations of the
+        SAME iterator. When `_pools` is passed, the CALLER owns the pools'
+        lifetime (the pipelined wrapper checks them back in from the
+        consumer side: this generator exhausts while yielded views are
+        still queued)."""
+        payloads, offsets, _, ts, _, _ = self._scan()
+        plan, pf = self.plan, self.pf
+        owns = _pools is None
+        if owns:
+            key, pools = self._checkout_inst_pools(chunk, pool_depth)
+        else:
+            pools = _pools
+        try:
+            fid_out = np.zeros(chunk, np.int64)
+            ts_out = np.zeros(chunk, np.uint64)
+            flip = 0
+            for base in range(0, len(groups), chunk):
+                sel = groups[base:base + chunk]
+                planes, hdrs, pkt_ts, pkt_hdrs, first_hdr = pools[flip]
+                flip = (flip + 1) % len(pools)
+                for k, grp in enumerate(sel):
+                    group_frames_planar(
+                        _gather_packets(payloads, offsets[grp],
+                                        pf.lidar_packet_size),
+                        ts[grp], pf, plan, planes[k:k + 1], hdrs[k:k + 1],
+                        fid_out[k:k + 1], ts_out[k:k + 1],
+                        out_pkt_ts=pkt_ts[k:k + 1],
+                        out_pkt_hdrs=pkt_hdrs[k:k + 1],
+                        out_first_hdr=first_hdr[k:k + 1])
+                n = len(sel)
+                yield PlanarBatch(fid_out[:n].copy(), planes[:n],
+                                  hdrs[:n], ts_out[:n].copy(), pkt_ts[:n],
+                                  pkt_hdrs[:n], first_hdr[:n])
+        finally:
+            if owns:
+                self._pools[key].append(pools)
+
+    def iter_instance_batches_pipelined(
+            self, groups: List[np.ndarray], chunk: int = 4,
+            depth: int = 2) -> Iterator[PlanarBatch]:
+        """iter_instance_batches staged on a background thread. The pools
+        check back in when the CONSUMER closes: the producer exhausts
+        while up to `depth` yielded batches still view them."""
+        key, pools = self._checkout_inst_pools(chunk, depth + 2)
+        return _pipelined(
+            lambda: self.iter_instance_batches(groups, chunk,
+                                               pool_depth=depth + 2,
+                                               _pools=pools),
+            depth,
+            on_close=lambda: self._pools[key].append(pools))
+
+    # -- packet-layout staging ----------------------------------------------
     def iter_chunks(self, chunk: int = 8) -> Iterator[
             Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """Yield (frame_ids (m,) i64, frames (m, n_pkts, pkt_words) u32,
@@ -133,7 +585,7 @@ class FrameReader:
         fids = read_bits(pk_words, self.pf.geom.frame_id).astype(np.int64)
         slots = (pk_words[:, plan.hw + plan.mid_word] & 0xFFFF).astype(
             np.int64) // plan.cpp
-        groups = self._group(fids)
+        groups = _group(fids, self.pf.max_frame_id)[0]
         for base in range(0, len(groups), chunk):
             sel = groups[base:base + chunk]
             frames = np.zeros((len(sel), plan.n_pkts, plan.pkt_words),
@@ -193,6 +645,7 @@ class FrameReader:
             yield (current_fid,
                    frame_words_from_packets(current, self.plan), first_ts)
 
+    # -- word-planar staging -------------------------------------------------
     def iter_planar_chunks(self, chunk: int = 8,
                            words: Optional[Tuple[int, ...]] = None
                            ) -> Iterator[Tuple[np.ndarray, np.ndarray,
@@ -210,14 +663,14 @@ class FrameReader:
         if pk_words.shape[0] == 0:
             return
         fids = read_bits(pk_words, self.pf.geom.frame_id).astype(np.int64)
-        groups = self._group(fids)
+        groups = _group(fids, self.pf.max_frame_id)[0]
         for base in range(0, len(groups), chunk):
             sel = groups[base:base + chunk]
             m = len(sel)
             planes = np.zeros((m, word_sel.size, plan.h, plan.w), np.uint32)
             hdrs = np.zeros((m, plan.schw, plan.w), np.uint32)
             for k, idx in enumerate(sel):
-                self._stage(pk_words[idx], word_sel, planes[k], hdrs[k])
+                _stage(plan, pk_words[idx], word_sel, planes[k], hdrs[k])
             yield (np.asarray([fids[g[0]] for g in sel], dtype=np.int64),
                    planes, hdrs,
                    np.asarray([ts[g[0]] for g in sel], dtype=np.uint64))

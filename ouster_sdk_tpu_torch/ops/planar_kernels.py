@@ -22,17 +22,22 @@ from t_i and k = 0, 1, 2.
 The kernel reads the poses as they come, (B, w, 4, 4) float32: with such
 poses, contiguous, a wrapper call launches the kernel and nothing else.
 `_pose_planes` packs them into planes for the plain version alone.
+
+`project_ranges` is the same projection for bare range images (no words to
+unpack, every column valid): `_proj_lean` on the CPU, the same kernel on
+the card.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .precision import fma_f32, split_f64_array
-from .unpack import DecodePlan, FieldPlan, _bits
+from .unpack import DecodePlan, FieldPlan, _bits, _u32
 from .xyzlut import XYZLut
 
 #: Kernel launches per case, counted by the wrapper where it launches the
@@ -288,6 +293,74 @@ def unpack_project_planar_batched(planes: torch.Tensor,
         launches[_case(plan, dual, poses is not None, planes.shape[1],
                        idx)] += 1
     return out if dual else out[0]
+
+
+@dataclass(frozen=True)
+class _RangeImagePlan:
+    """What the kernel launch reads of a DecodePlan, for bare range
+    images: one col-header row whose bit 0 is the column's valid bit."""
+
+    h: int
+    w: int
+    schw: int = 1
+    staged_status_word: int = 0
+    status_bit: int = 0
+
+
+#: A range image is a one-plane frame whose range field is the whole word.
+_RANGE_WORD = FieldPlan(name="RANGE", word=0, bit=0, size=32, upshift=0,
+                        out_dtype="uint32")
+
+#: All-ones col-header rows, one per (B, w, device): every column valid.
+_VALID_ROWS: Dict[Tuple[int, int, torch.device], torch.Tensor] = {}
+
+
+def _valid_rows(B: int, w: int, device: torch.device) -> torch.Tensor:
+    key = (B, w, device)
+    row = _VALID_ROWS.get(key)
+    if row is None:
+        if len(_VALID_ROWS) >= 16:      # a handful of window sizes recur
+            _VALID_ROWS.clear()
+        row = _VALID_ROWS[key] = torch.ones((B, 1, w), dtype=torch.int32,
+                                            device=device)
+    return row
+
+
+def project_ranges(rngs: torch.Tensor, lut_stack: torch.Tensor,
+                   precision: str = "dd") -> torch.Tensor:
+    """Range images (B, h, w), u32 millimetres held as int32, -> XYZ
+    (B, 3, h, w) f32 through the LUT stack (PlanarLut.stack): the
+    projection of unpack_project_planar_batched without the unpacking,
+    for ranges that were decoded elsewhere (OSF replay). Every column is
+    valid; a zero range projects to the origin. The arithmetic is exact
+    for ranges below 2**23, which nothing here checks.
+
+    CPU tensors take the plain `_proj_lean`; CUDA tensors launch the
+    planar kernel on the images as one-plane frames whose range field is
+    word 0, bit 0, 32 bits wide, with a cached all-ones col-header row,
+    and count under launches["planar"]. An empty batch launches nothing.
+    """
+    if precision not in ("dd", "f32"):
+        raise ValueError(f"precision must be 'dd' or 'f32', not "
+                         f"{precision!r}")
+    if rngs.ndim != 3 or rngs.dtype != torch.int32:
+        raise ValueError(f"rngs must be (B, h, w) int32, got "
+                         f"{tuple(rngs.shape)} {rngs.dtype}")
+    device = rngs.device
+    if device.type == "cpu":
+        return _proj_lean(_u32(rngs), lut_stack, precision=precision)
+    if device.type != "cuda":
+        raise ValueError(f"range projection runs on cpu or cuda tensors, "
+                         f"not {device.type}")
+    from ..kernels.planar_project import launch
+
+    B, h, w = rngs.shape
+    out = launch(rngs.contiguous()[:, None], _valid_rows(B, w, device),
+                 lut_stack, None, _RangeImagePlan(h, w), (_RANGE_WORD,),
+                 (0,), precision)
+    if B:
+        launches["planar"] += 1
+    return out[0]
 
 
 def words_tensor(words: np.ndarray, device) -> torch.Tensor:

@@ -38,6 +38,11 @@ class FieldInfo:
     num_elements: int = 1
 
     @property
+    def value_mask(self) -> int:
+        """Mask of the decoded value (ref: parsing.cpp:171-188)."""
+        return ((1 << self.bit_size) - 1) << self.upshift
+
+    @property
     def dtype(self) -> np.dtype:
         """Packet-level dtype (ref: parsing.cpp:134-156)."""
         needs_bits = self.bit_size + self.upshift
@@ -474,3 +479,24 @@ def make_packet_geometry(fmt) -> PacketGeometry:
         columns_per_packet=fmt.columns_per_packet,
         **kw,
     )
+
+
+# Zone packet record layout (ref: parsing.cpp:600-620); offsets relative to
+# the start of a 36-byte zone measurement record, except zone_timestamp which
+# is relative to packet start + header.
+ZONE_TIMESTAMP = fi(256, 64)  # relative to packet start
+ZONE_RECORD_FIELDS = {
+    "live": fi(0, 1),
+    "id": fi(8, 8),
+    "error_flags": fi(16, 8),
+    "trigger_type": fi(26, 2),
+    "trigger_status": fi(31, 1),
+    "triggered_frames": fi(32, 32),
+    "count": fi(64, 32),
+    "occlusion_count": fi(96, 32),
+    "invalid_count": fi(128, 32),
+    "max_count": fi(160, 32),
+    "min_range": fi(192, 19),
+    "max_range": fi(224, 19),
+    "mean_range": fi(256, 19),
+}

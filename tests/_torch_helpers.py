@@ -10,6 +10,7 @@ synthesized frame itself is packet-layout (FrameReader.iter_chunks).
 
 from __future__ import annotations
 
+import json
 import os
 import sys
 
@@ -179,3 +180,198 @@ def poses(B: int, w: int, seed: int = 7) -> np.ndarray:
     T[..., :3, 3] = np.einsum("...ij,...j->...i", V, v)
     T[..., 3, 3] = 1
     return T.astype(np.float32)
+
+
+# -- packet streams, captures and scans for the device engine tests ---------
+
+def engine_infos(profile: str, w: int = 256, h: int = 32, *,
+                 column_window=None, init_id: int = 0, sn: int = 0,
+                 nmea_imu: bool = False, zone_port: int = 0,
+                 extrinsic=None):
+    """(JAX SensorInfo, port SensorInfo) of one synthetic sensor with the
+    knobs the engine tests turn: an azimuth window, ids for the packet id
+    check, an ACCEL32_GYRO32_NMEA IMU stream (port 7503, 2 packets of 4
+    measurements a frame), a zone-monitoring stream on `zone_port`, an
+    extrinsic. Both are parsed from the same metadata string."""
+    from ouster_sdk_tpu.core.types import UDPProfileIMU
+
+    info = _make_info(w=w, h=h, dual=False)
+    info.format.udp_profile_lidar = UDPProfileLidar(profile)
+    info.config.udp_port_lidar = 7502
+    info.init_id, info.sn = init_id, sn
+    if column_window is not None:
+        info.format.column_window = tuple(column_window)
+    meta = json.loads(info.to_json_string())
+    if nmea_imu:
+        meta["lidar_data_format"]["udp_profile_imu"] = \
+            UDPProfileIMU.ACCEL32_GYRO32_NMEA.value
+        meta["imu_data_format"] = {"imu_packets_per_frame": 2,
+                                   "imu_measurements_per_packet": 4}
+        meta["config_params"]["udp_port_imu"] = 7503
+    if zone_port:
+        meta["config_params"]["udp_port_zm"] = zone_port
+        meta["config_params"]["udp_dest_zm"] = "10.0.0.1"
+    if extrinsic is not None:
+        meta.setdefault("ouster-sdk", {})["extrinsic"] = \
+            np.asarray(extrinsic, np.float64).reshape(-1).tolist()
+    meta = json.dumps(meta)
+    return jax_sensor_info(meta), pt.sensor_info_from_metadata(meta)
+
+
+def frame_packets(jinfo, fid: int, seed: int = 0, ts0: int = 10**6,
+                  invalid: float = 0.05, **header):
+    """One frame's lidar packets as u8 arrays, from the JAX package's
+    writer: every channel field of the profile random from the seed
+    (about 5% of ranges zero), column timestamps from ts0, `invalid` of
+    the columns with their status bit clear; `header` goes to
+    set_packet_header (alert_flags, thermal_shutdown, shot_limiting,
+    countdown_thermal, countdown_shot)."""
+    from ouster_sdk_tpu import PacketWriter
+
+    pw = PacketWriter(jinfo.format)
+    cpp, h = pw.columns_per_packet, pw.pixels_per_column
+    rng = np.random.default_rng([seed, fid])
+    out = []
+    for p in range(jinfo.format.columns_per_frame // cpp):
+        buf = pw.new_packet()
+        pw.set_packet_header(buf, init_id=jinfo.init_id, prod_sn=jinfo.sn,
+                             **header)
+        pw.set_frame_id(buf, fid)
+        m0 = p * cpp
+        status = (rng.random(cpp) >= invalid).astype(np.uint32)
+        pw.set_col_headers(
+            buf, np.arange(cpp, dtype=np.uint64) * 100 + m0 * 100 + ts0,
+            np.arange(cpp, dtype=np.uint16) + m0, status)
+        for name in pw.fields:
+            fi = pw.field_info(name)
+            if name.startswith("RAW32"):
+                continue
+            n_el = fi.num_elements
+            bits = fi.bit_size // n_el
+            shape = (h, cpp) + ((n_el,) if n_el > 1 else ())
+            v = rng.integers(0, 1 << bits, size=shape, dtype=np.uint64)
+            if name.startswith("RANGE"):
+                v[rng.random(shape) < 0.05] = 0
+            pw.set_field(buf, name, v << np.uint64(fi.upshift))
+        out.append(buf)
+    return out
+
+
+def lidar_stream(frames, t0: int = 10**9, dt: int = 10**5):
+    """[(kind, payload, host_ts)] of the frames' packets in order, host
+    timestamps rising by dt from t0."""
+    stream, t = [], t0
+    for pkts in frames:
+        for p in pkts:
+            stream.append(("lidar", p, t))
+            t += dt
+    return stream
+
+
+def aux_packet(jinfo, kind: str, fid: int, seed: int = 0,
+               m_id0: int = 0) -> np.ndarray:
+    """An IMU or zone packet of the profile's size made of seeded random
+    bytes with the frame id patched in; an IMU packet also gets its
+    measurement ids set from m_id0 on, so that it lands in a packet slot
+    of the frame."""
+    from ouster_sdk_tpu.ops.packet_format import PacketFormat
+
+    pf = PacketFormat.from_info(jinfo)
+    size = pf.imu_packet_size if kind == "imu" else pf.zone_packet_size
+    rng = np.random.default_rng([seed, fid, m_id0, kind == "imu"])
+    buf = rng.integers(0, 256, size, dtype=np.uint8)
+    buf[2:4] = np.frombuffer(np.uint16(fid).tobytes(), np.uint8)
+    if kind == "imu":
+        g = pf.geom
+        for k in range(pf.imu_measurements_per_packet):
+            off = g.imu_measurement_offset + k * g.imu_measurement_size + 8
+            buf[off:off + 2] = np.frombuffer(
+                np.uint16(m_id0 + k).tobytes(), np.uint8)
+    return buf
+
+
+PORTS = {"lidar": 7502, "imu": 7503, "zone": 7504}
+
+
+def write_pcap(path: str, stream, ports=None) -> str:
+    """Write [(kind, payload, host_ts)] to `path` with the port's
+    PcapWriter and, beside it, with the JAX package's; the two files must
+    be byte-equal. `ports` maps a kind to its destination port (default
+    PORTS)."""
+    from ouster_sdk_tpu.io.pcap import PcapWriter as JaxPcapWriter
+
+    ports = {**PORTS, **(ports or {})}
+    for writer_cls, out in ((pt.PcapWriter, path),
+                            (JaxPcapWriter, path + ".jax")):
+        with writer_cls(out) as w:
+            for kind, payload, ts in stream:
+                port = ports[kind] if isinstance(kind, str) else kind
+                w.write(np.asarray(payload, np.uint8).tobytes(), "10.0.0.2",
+                        "10.0.0.1", port, port, ts)
+    with open(path, "rb") as a, open(path + ".jax", "rb") as b:
+        assert a.read() == b.read(), "the two PcapWriters disagree"
+    os.remove(path + ".jax")
+    return path
+
+
+def batcher_scans(pkg, info, stream, trailing_flush: bool = True,
+                  field_types=None):
+    """What `pkg`'s ScanBatcher makes of the stream, packet by packet
+    (pkg is the port, `pt`, or the JAX package): the scans in release
+    order, each with the index of the packet that released it, and with
+    the trailing flush the scan sources apply at the end of a capture (the
+    open scan is emitted when it has a valid column)."""
+    from importlib import import_module
+
+    root = pkg.__name__
+    packets = import_module(root + ".core.packets")
+    LidarScan = import_module(root + ".core.lidar_scan").LidarScan
+    ScanBatcher = import_module(root + ".core.batcher").ScanBatcher
+    cls = {"lidar": packets.LidarPacket, "imu": packets.ImuPacket,
+           "zone": packets.ZonePacket}
+    b = ScanBatcher(info)
+    cur = LidarScan(info, field_types=field_types)
+    out = []
+    for k, (kind, payload, ts) in enumerate(stream):
+        pkt = cls[kind](np.asarray(payload, np.uint8).tobytes(), ts)
+        if b(pkt, cur):
+            out.append((k, cur))
+            cur = LidarScan(info, field_types=field_types)
+            # the packet that closed the scan was cached: it opens the
+            # next scan on the next call
+    if trailing_flush and cur.frame_id != -1 and np.any(cur.status & 1):
+        out.append((None, cur))
+    return out
+
+
+def has_nan(scan) -> bool:
+    """Whether a float field of the scan holds a NaN (float16 RGB, random
+    IMU floats): `LidarScan.__eq__` holds no such scan equal, not even to
+    itself."""
+    return any(scan.field(n).dtype.kind == "f"
+               and np.isnan(scan.field(n).astype(np.float64)).any()
+               for n in scan.fields)
+
+
+def assert_scans_equal(a, b, tag: str = "") -> None:
+    """Two LidarScans, of either package, carry the same fields (name,
+    dtype, shape, bits), header arrays (dtype too) and scalars."""
+    assert a.frame_id == b.frame_id, tag
+    assert (a.w, a.h) == (b.w, b.h), tag
+    assert sorted(a.fields) == sorted(b.fields), \
+        f"{tag}: {sorted(a.fields)} != {sorted(b.fields)}"
+    for name in b.fields:
+        x, y = a.field(name), b.field(name)
+        assert x.dtype == y.dtype and x.shape == y.shape, \
+            f"{tag}:{name}: {x.dtype}{x.shape} != {y.dtype}{y.shape}"
+        if x.dtype.kind == "f" and x.dtype.itemsize == 2:
+            x, y = x.view(np.uint16), y.view(np.uint16)
+        np.testing.assert_array_equal(x, y, err_msg=f"{tag}:{name}")
+    for attr in ("timestamp", "measurement_id", "status",
+                 "packet_timestamp", "alert_flags", "pose"):
+        x, y = getattr(a, attr), getattr(b, attr)
+        assert x.dtype == y.dtype, f"{tag}:{attr} dtype"
+        np.testing.assert_array_equal(x, y, err_msg=f"{tag}:{attr}")
+    for attr in ("frame_status", "shutdown_countdown",
+                 "shot_limiting_countdown"):
+        assert getattr(a, attr) == getattr(b, attr), f"{tag}:{attr}"

@@ -12,7 +12,11 @@ never contracted) and for the dewarp (the kernel's hardware fma against
 the plain version's correctly rounded emulation). The packet-layout kernel
 is also bit-exact against the planar kernel on the same frames restaged. The four LUT-free cases are bit-exact against their
 plain versions on the card and against the plain versions on the CPU, and
-the planar LUT-free kernel against the packet-layout one."""
+the planar LUT-free kernel against the packet-layout one. The device engine
+at a small size: the iterator's and the live batcher's scans equal the
+port's ScanBatcher's (0 differing elements), a live scan is copied back
+only when a field is touched, and the projector's XYZ comes from the
+planar kernel, bit-exact against `_proj_lean`."""
 
 import numpy as np
 import pytest
@@ -615,3 +619,138 @@ def test_pose_functions_on_the_card_match_the_cpu(cuda):
     assert torch.equal(on_card.cpu().view(torch.int32),
                        pp.dewarp(torch.from_numpy(pts),
                                  torch.from_numpy(P)).view(torch.int32))
+
+
+# -- the device engine on the card --------------------------------------------
+
+def _engine_capture(tmp_path, profile="RNG19_RFL8_SIG16_NIR16_DUAL", n=4):
+    """A small capture with the chip smoke run's faults (a lost packet, a
+    straggler, an open last frame) from its jax-free synthesizer, and the
+    port's ScanBatcher's scans of it."""
+    import chip_smoke as cs
+
+    info = cs.synth_info(profile, w=512, h=32)
+    main = str(tmp_path / "main.pcap")
+    cs.synth_capture(main, info, n)
+    path = str(tmp_path / "engine.pcap")
+    assert cs.engine_capture(path, main, info, n) == n + 3
+    packets = cs.capture_packets(pt, info, path)
+    return cs, info, path, packets, cs.batcher_scans(pt, info, packets)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 4])
+def test_engine_iterator_on_the_card_equals_the_batcher(cuda, tmp_path,
+                                                        batch):
+    from ouster_sdk_tpu_torch.io import device_engine as de
+
+    cs, info, path, _, oracle = _engine_capture(tmp_path)
+    de.stats.update(batches=0, scans=0)
+    it = pt.DeviceScanIterator(path, info, batch=batch)
+    assert it.device.type == "cuda"
+    got = list(it.iter_released())
+    assert de.stats["batches"] == -(-7 // batch)
+    assert [(r, s.frame_id) for r, s in got] == \
+        [(r, s.frame_id) for r, s in oracle]
+    for (_, a), (_, b) in zip(got, oracle):
+        assert cs.scans_differ(a, b) == 0 and a == b
+    index = pt.DeviceScanIndex(it, cache_scans=2)
+    assert len(index) == 7
+    for i in (6, 0, 4):
+        assert index.scan_at(i) == got[i][1]
+
+
+@pytest.mark.cuda
+def test_engine_live_scan_stays_on_the_card_until_touched(cuda, tmp_path):
+    cs, info, _, packets, oracle = _engine_capture(tmp_path, n=3)
+    live = pt.LiveDeviceBatcher(info)
+    assert live.device.type == "cuda" and live._ring[0][0].is_pinned()
+    scans = []
+    for _, pkt in packets:
+        scans.extend(live.push(pkt.buf, pkt.host_timestamp))
+    assert len(scans) == 5 and all(s.fields_deferred for s in scans)
+    # five flushes over four ring slots: the first slot's fence was waited
+    # on and set again
+    assert all(e is not None for e in live._ring_events)
+    from ouster_sdk_tpu_torch.io import device_engine as de
+
+    with cs.count_calls(de, "_to_host") as readbacks:
+        trace = cs.device_trace(torch, lambda: scans[1].status.sum())
+    assert cs.copies(trace, "DtoH") == 0 and readbacks.n == 0
+    assert scans[1].fields_deferred
+    with cs.count_calls(de, "_to_host") as readbacks:
+        trace = cs.device_trace(torch, lambda: scans[1].field("SIGNAL"))
+    # the profiler's count is a lower bound (it can lose records); the
+    # call count is exact
+    assert readbacks.n == 1 and cs.copies(trace, "HtoD") == 0
+    assert not scans[1].fields_deferred and scans[0].fields_deferred
+    for a, (_, b) in zip(scans, oracle):
+        assert cs.scans_differ(a, b) == 0 and a == b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision", ["dd", "f32"])
+def test_project_ranges_launches_the_planar_kernel(cuda, precision):
+    info = _info(PROFILES["planar_dual"])
+    lut = pt.PlanarLut(pt.make_xyz_lut(info), cuda).stack
+    rng = np.random.default_rng(4)
+    r = rng.integers(0, 1 << 19, (5, 32, 512), dtype=np.uint32)
+    r[rng.random(r.shape) < 0.05] = 0
+    rngs = pk.words_tensor(r, cuda)
+    pk.reset_launches()
+    got = pt.project_ranges(rngs, lut, precision=precision)
+    assert pk.launches["planar"] == 1 and sum(pk.launches.values()) == 1
+    want = pk._proj_lean(rngs.to(torch.int64), lut, precision=precision)
+    cpu = pt.project_ranges(rngs.cpu(), lut.cpu(), precision=precision)
+    torch.cuda.synchronize()
+    assert got.shape == (5, 3, 32, 512)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert torch.equal(got.cpu().view(torch.int32), cpu.view(torch.int32))
+    assert pk.launches["planar"] == 1           # the plain calls launch none
+    # an empty window launches nothing and counts nothing
+    out = pt.project_ranges(rngs[:0], lut)
+    assert out.shape == (0, 3, 32, 512) and pk.launches["planar"] == 1
+    with pytest.raises(ValueError):
+        pt.project_ranges(rngs, lut.cpu())
+
+
+@pytest.mark.cuda
+def test_projector_on_the_card_goes_through_the_kernel(cuda, tmp_path):
+    import copy
+
+    from ouster_sdk_tpu_torch.io import device_engine as de
+
+    cs, info, path, _, oracle = _engine_capture(tmp_path, n=2)
+    info_ext = copy.deepcopy(info)
+    info_ext.extrinsic = np.array(
+        [[0.0, -1.0, 0.0, 500.0], [1.0, 0.0, 0.0, -250.0],
+         [0.0, 0.0, 1.0, 1500.0], [0.0, 0.0, 0.0, 1.0]])
+    scans = [s for _, s in oracle]
+    de.stats.update(batches=0, osf_batches=0)
+    pk.reset_launches()
+    proj = pt.OsfDeviceProjector([info, info_ext], batch=3)
+    proj.attach([])                                 # an empty window
+    proj.attach([(0, None)])
+    assert sum(pk.launches.values()) == 0 and de.stats["osf_batches"] == 0
+    out = list(proj.wrap(iter([(k % 2, s) for k, s in enumerate(scans)])))
+    assert [s for _, s in out] == scans
+    # windows of 3, 2 scans: sensor 0 launches once a window it is in,
+    # sensor 1 twice (its extrinsics frame too)
+    assert de.stats["osf_batches"] == 4
+    assert pk.launches["planar"] == 2 * 1 + 2 * 2
+    assert sum(pk.launches.values()) == pk.launches["planar"]
+    for k, ls in enumerate(scans):
+        for use_ext in (False, True):
+            lut = pt.PlanarLut(pt.make_xyz_lut(
+                (info, info_ext)[k % 2], use_ext), cuda).stack
+            for ret, name in enumerate(("RANGE", "RANGE2")):
+                rng = ls.field(name)
+                xyz = ls.cached_xyz(ret, use_ext, rng)
+                want = pk._proj_lean(
+                    torch.from_numpy(rng.astype(np.int64)).to(cuda)[None],
+                    lut, precision="dd")[0].movedim(0, -1).contiguous()
+                assert np.array_equal(xyz.view(np.uint32),
+                                      want.cpu().numpy().view(np.uint32))
+    rng = scans[0].field("RANGE")
+    rng[0, 0] += 1
+    assert scans[0].cached_xyz(0, False, rng) is None

@@ -110,6 +110,49 @@ def test_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_engine_runs_with_jax_unimportable():
+    """The device engine end to end (capture, iterator, index, live
+    batcher, projector) and the chip smoke run's jax-free synthesizer,
+    with jax and the JAX package made unimportable."""
+    code = textwrap.dedent(f"""
+        import os, sys, tempfile
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        info = cs.synth_info(cs.MAIN_PROFILE, w=128, h=16)
+        tmp = tempfile.mkdtemp()
+        main, path = os.path.join(tmp, "m.pcap"), os.path.join(tmp, "e.pcap")
+        cs.synth_capture(main, info, 2)
+        assert cs.engine_capture(path, main, info, 2) == 5
+        packets = cs.capture_packets(pt, info, path)
+        oracle = cs.batcher_scans(pt, info, packets)
+        it = pt.DeviceScanIterator(path, info, device="cpu", batch=2)
+        got = list(it.iter_released())
+        cs.hold_scans(got, oracle, "iterator")
+        index = pt.DeviceScanIndex(it)
+        assert len(index) == 5 and index.scan_at(3) == got[3][1]
+        live = pt.LiveDeviceBatcher(info, device="cpu")
+        scans = [s for _, p in packets
+                 for s in live.push(p.buf, p.host_timestamp)]
+        assert len(scans) == 4 and all(s.fields_deferred for s in scans)
+        assert all(a == b for a, (_, b) in zip(scans, oracle))
+        pt.OsfDeviceProjector([info], device="cpu").attach(
+            [(0, s) for s in scans])
+        xyz = scans[0].cached_xyz(1, True, scans[0].field("RANGE2"))
+        assert xyz.shape == (16, 128, 3) and np.isfinite(xyz).all()
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     _, pinfo = infos(DUAL)
     if torch.cuda.is_available():
