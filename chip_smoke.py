@@ -3,9 +3,12 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from the sources in this checkout, synthesizes
-captures with the port's own packet and pcap writers, and drives the
-port's four paths through the entry points a user calls.
+Builds the CUDA kernels and the native host library (g++, the port's own
+C++ copy) from the sources in this checkout, synthesizes captures with the
+port's own packet and pcap writers, and drives the port's five paths
+through the entry points a user calls. Every path stages its packets
+through the native library: its call counts are read after each path and
+the run fails unless each path made a capture scan and grouper calls.
 
 The planar path: pcap -> FrameReader.iter_planar_chunks -> ScanPipeline
 (decode_planar, project_planar without and with per-column poses) ->
@@ -25,7 +28,12 @@ torch.profiler trace of the pushes must show no device->host copy) and
 OsfDeviceProjector.attach (XYZ through the planar kernel), every scan
 held equal to the port's ScanBatcher over the same packets; its capture is
 the main capture plus three frames with a lost packet, a straggler and an
-open last frame.
+open last frame. The scan-source path: open_source(pcap) -> PcapScanSource
+-> the engine (one DeviceScanIterator a sensor, merged in packet order) ->
+LidarScans, held equal to the same ScanBatcher with the same release
+points, indexed (len and random lookups), and on a two-sensor capture
+held equal to the same source on the numpy batcher
+(OUSTER_SDK_TPU_DEVICE_DECODE=0), yield order included.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -50,7 +58,10 @@ times kernel, plain version and host staging at B=32 and B=128. No single
 PyTorch call computes a double-single projection, so `library_ms` is null
 in every entry. The engine path's stage times, its frames/s from pcap
 to LidarScan, the live path's time a push and a flush and the projector's
-time a window are printed on lines of their own.
+time a window are printed on lines of their own, and so are the host
+staging stages with the native library beside the numpy versions it
+replaces (io/frames.py keeps them: the route on a host without g++) on the
+same bytes, held byte-equal, and the frames/s of the five paths.
 
 Prints the card's name and power limit, a `kernels` JSON line of twelve
 entries, and last
@@ -62,6 +73,7 @@ from __future__ import annotations
 
 import json
 import os
+from contextlib import nullcontext
 import subprocess
 import sys
 import tempfile
@@ -101,6 +113,7 @@ REPLACES = {
 
 
 CARD = ""    # the card's name and power limit, as nvidia-smi gives them
+FPS = {}     # frames/s end to end of each path's main cell, cold
 
 
 class SmokeFailure(RuntimeError):
@@ -110,6 +123,35 @@ class SmokeFailure(RuntimeError):
 def check(cond, msg: str) -> None:
     if not cond:
         raise SmokeFailure(msg)
+
+
+def native_staged(what: str, scans: int, **groupers: int) -> None:
+    """Fail unless the path just run staged through the native library:
+    `scans` capture scans and at least the given count of calls of each
+    grouper since the counts were last reset."""
+    from ouster_sdk_tpu_torch.utils import native
+
+    calls = dict(native.calls)
+    check(calls["pcap_scan"] == scans
+          and all(calls[g] >= n for g, n in groupers.items()),
+          f"{what}: native calls {calls}, expected {scans} capture scans "
+          f"and at least {groupers}")
+    print(f"{what}: native staging calls {calls}")
+
+
+class numpy_staging:
+    """Inside the block the staging takes the numpy route, as on a host
+    without g++: native.get_lib reads None."""
+
+    def __enter__(self):
+        from ouster_sdk_tpu_torch.utils import native
+
+        self.native, self.get_lib = native, native.get_lib
+        native.get_lib = lambda: None
+        return self
+
+    def __exit__(self, *exc):
+        self.native.get_lib = self.get_lib
 
 
 # -- synthetic sensors and captures (numpy + the port's writers) ------------
@@ -442,15 +484,28 @@ def main() -> int:
           f"python {sys.version.split()[0]}")
     dev = torch.device("cuda")
 
-    # 2. build
+    # 2. build: the kernels (one nvcc a source) and the native host library
+    # (g++), all at once
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ouster_sdk_tpu_torch.utils import native
+
     t0 = time.perf_counter()
-    build.build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        lib = pool.submit(native.get_lib)
+        build.build_all()
+        lib = lib.result()
     build_s = time.perf_counter() - t0
-    print(f"kernels built in {build_s:.1f} s")
+    check(lib is not None, "the native host library did not load (no g++)")
+    print(f"kernels and native library built in {build_s:.1f} s")
     for src, (log, secs) in build.build_log.items():
         print(f"  {src}: nvcc {secs:.1f} s\n"
               + "\n".join("    " + ln for ln in log.strip().splitlines()
                           if "registers" in ln or "spill" in ln))
+    print(f"  {os.path.relpath(native.SOURCE, HERE)}: g++ "
+          + ("loaded from disk" if native.build_seconds is None
+             else f"{native.build_seconds:.1f} s")
+          + f" -> {os.path.relpath(native.lib_path(), HERE)}")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -480,7 +535,10 @@ def _run(torch, port, pk, dev, tmp) -> int:
               f"{time.perf_counter() - t0:.1f} s")
 
     # 4. the main path, through the entry points, counts from zero
+    from ouster_sdk_tpu_torch.utils import native
+
     pk.reset_launches()
+    native.reset_calls()
     staged = {}
     t_main = time.perf_counter()
     for profile, w, n, chunk in cells:
@@ -508,10 +566,12 @@ def _run(torch, port, pk, dev, tmp) -> int:
         print(f"{profile} 128x{w}: {n} frames pcap -> XYZ (staging, decode, "
               f"project without and with poses, destagger) in {e2e_s:.3f} s"
               f" = {n / e2e_s:.2f} frames/s")
+        FPS.setdefault("planar", n / e2e_s)
         staged[profile] = (info, pipe, runs, stage_s)
         check(xyz_d.shape == (B, 3, 128, w) and rng_d.shape == (B, 128, w),
               f"{profile}: destagger shapes {xyz_d.shape} {rng_d.shape}")
     main_s = time.perf_counter() - t_main
+    native_staged("planar path", len(cells), group_frames_planar=len(cells))
     launches = dict(pk.launches)
     print(f"main path (stage + decode + project x2 + destagger, 3 captures)"
           f" in {main_s:.2f} s; launches {launches}")
@@ -740,12 +800,15 @@ def _run(torch, port, pk, dev, tmp) -> int:
     kernels += entries
     kernels += _run_lutfree(torch, port, pk, dev, captures, staged,
                             packet_runs, bw)
-    engine_launches = _run_engine(torch, port, pk, dev, tmp, captures,
-                                  staged)
+    engine_launches, oracle = _run_engine(torch, port, pk, dev, tmp,
+                                          captures, staged)
     # row 1's kernel also serves the engine path's projector
     kernels[0]["launches"] += engine_launches
     print(f"planar_project<planar>: {launches['planar']} launches on the "
           f"planar path + {engine_launches} on the engine path")
+    _run_sources(torch, port, tmp, captures[MAIN_PROFILE][0], oracle)
+    print("frames/s end to end, main cell, cold, native staging: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -774,8 +837,11 @@ def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw):
     ]
 
     # 1. the path through the entry points, counts from zero
+    from ouster_sdk_tpu_torch.utils import native
+
     pkt.reset_launches()
     pk.reset_launches()
+    native.reset_calls()
     runs = {}
     for key, info, path, n, chunk in cells:
         pipe = port.ScanPipeline(info)
@@ -802,10 +868,12 @@ def _run_packet(torch, port, pk, dev, tmp, captures, staged, bw):
         print(f"{key} 128x{w}: {n} frames pcap -> packet staging -> batch "
               f"without and with poses in {e2e_s:.3f} s = "
               f"{n / e2e_s:.2f} frames/s")
+        FPS.setdefault("packet layout", n / e2e_s)
         runs[key] = dict(info=info, pipe=pipe, frames=frames,
                          frames_d=frames_d, planes=planes, out=out,
                          outw=outw, xyz=as_tuple(xyz), one=one, poses=poses,
                          stage_s=stage_s, fids=fids)
+    native_staged("packet-layout path", len(cells), group_frames=len(cells))
     launches = dict(pkt.launches)
     print(f"packet-layout path: launches {launches}")
     # per capture: one batched call, plus the single-frame unpack_project
@@ -1038,9 +1106,12 @@ def _run_lutfree(torch, port, pk, dev, captures, staged, packet_runs,
         raise SmokeFailure("FactorTables accepted per-pixel angle tables")
 
     # 1. the path through the entry points, counts from zero
+    from ouster_sdk_tpu_torch.utils import native
+
     lf.reset_launches()
     pkt.reset_launches()
     pk.reset_launches()
+    native.reset_calls()
     runs = {}
     for key, n in ((MAIN_PROFILE, 32), (SINGLE_PROFILE, 4),
                    (SPLIT_PROFILE, 4)):
@@ -1081,11 +1152,15 @@ def _run_lutfree(torch, port, pk, dev, captures, staged, packet_runs,
               f"copy -> unpack_project_lutfree_dd"
               f"{' (both returns)' if dual else ''} in {e2e_s:.3f} s = "
               f"{n / e2e_s:.2f} frames/s")
+        FPS.setdefault("LUT-free", n / e2e_s)
         runs[key] = dict(info=info, plan=plan, dual=dual, tables=tables,
                          frames=frames, frames_d=frames_d, planes_d=planes_d,
                          hdrs_d=hdrs_d, dd=as_tuple(dd), f32=f32,
                          first=first, one=as_tuple(one), planar=planar,
                          fids=fids, stage_s=stage_s, pstage_s=pstage_s)
+    # a packet-layout and a planar reader a capture
+    native_staged("LUT-free path", 2 * len(runs), group_frames=len(runs),
+                  group_frames_planar=len(runs))
     launches = dict(lf.launches)
     print(f"LUT-free path: launches {launches}")
     # per capture: the dd call (dual on two captures), the f32 call, the
@@ -1294,18 +1369,23 @@ def device_trace(torch, fn):
 
 
 class count_calls:
-    """Count the calls of `module.name` while the block runs: a witness of
-    device->host copies that does not depend on the profiler."""
+    """Count the calls of `module.name` while the block runs, and the host
+    time spent in them: a witness of device->host copies that does not
+    depend on the profiler, and a split of a host-side step."""
 
     def __init__(self, module, name: str):
-        self.module, self.name, self.n = module, name, 0
+        self.module, self.name, self.n, self.seconds = module, name, 0, 0.0
 
     def __enter__(self):
         self.fn = getattr(self.module, self.name)
 
         def counted(*args, **kwargs):
             self.n += 1
-            return self.fn(*args, **kwargs)
+            t0 = time.perf_counter()
+            try:
+                return self.fn(*args, **kwargs)
+            finally:
+                self.seconds += time.perf_counter() - t0
 
         setattr(self.module, self.name, counted)
         return self
@@ -1327,6 +1407,7 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     planar path's runs: the XYZ of the main capture's frames."""
     from ouster_sdk_tpu_torch.io import device_engine as de
     from ouster_sdk_tpu_torch.ops.unpack import decode_frame_planar_batch
+    from ouster_sdk_tpu_torch.utils import native
 
     info, main_path = captures[MAIN_PROFILE]
     h, w = info.format.pixels_per_column, info.format.columns_per_frame
@@ -1367,6 +1448,7 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     runs = {}
     for batch in (4, 32):
         de.stats.update(batches=0, scans=0, osf_batches=0)
+        native.reset_calls()
         t0 = time.perf_counter()
         it = de.DeviceScanIterator(path, info, batch=batch)
         check(it.device.type == "cuda", "DeviceScanIterator did not pick "
@@ -1377,10 +1459,14 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
         check(de.stats["batches"] == -(-n_scans // batch)
               and de.stats["scans"] == n_scans,
               f"batch {batch}: stats {de.stats}")
+        # one single-frame grouper call a scan
+        native_staged(f"engine path batch={batch}", 1,
+                      group_frames_planar=n_scans)
         hold_scans(got, oracle, f"DeviceScanIterator batch={batch}")
         print(f"engine end to end, cold, batch={batch}: {n_scans} frames "
               f"pcap -> LidarScan in {secs:.3f} s = {n_scans / secs:.2f} "
               f"frames/s [{CARD}]")
+        FPS.setdefault("engine", n_scans / secs)
         runs[batch] = (it, got)
     it, scans = runs[4]
     s0 = scans[0][1]
@@ -1418,8 +1504,14 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
         return out
 
     timed = {False: [], True: []}
-    live_scans = push_all(de.LiveDeviceBatcher(info), packets, timed)
-    torch.cuda.synchronize()
+    native.reset_calls()
+    with count_calls(de, "stage_planar") as grouper, \
+            count_calls(de, "decode_frame_planar_batch") as decode, \
+            count_calls(de, "materialize_scan_deferred") as headers:
+        live_scans = push_all(de.LiveDeviceBatcher(info), packets, timed)
+        torch.cuda.synchronize()
+    # one grouper call a flush, no capture scan
+    native_staged("live path", 0, group_frames_planar=len(timed[True]))
     check(len(live_scans) == n_scans - 1
           and all(s.fields_deferred for s in live_scans),
           f"live: {len(live_scans)} scans, deferred "
@@ -1428,7 +1520,20 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
           f"of {len(timed[False])}), a push that flushes a frame "
           f"{np.median(timed[True]) * 1e3:.2f} ms (median of "
           f"{len(timed[True])}: group + pinned copy + decode issued, nothing "
-          f"awaited) [{CARD}]")
+          f"awaited); a flush on average: grouper "
+          f"{grouper.seconds / grouper.n * 1e3:.2f} ms, copy + decode issued "
+          f"{decode.seconds / decode.n * 1e3:.2f} ms, deferred scan "
+          f"{headers.seconds / headers.n * 1e3:.2f} ms [{CARD}]")
+    # the same pushes through the numpy grouper, the route without g++
+    ntimed = {False: [], True: []}
+    with numpy_staging():
+        numpy_live = push_all(de.LiveDeviceBatcher(info), packets, ntimed)
+        torch.cuda.synchronize()
+    print(f"live path with the numpy grouper: a push that flushes a frame "
+          f"{np.median(ntimed[True]) * 1e3:.2f} ms (median of "
+          f"{len(ntimed[True])}) [{CARD}]")
+    hold_scans(list(zip((r for r, _ in oracle), numpy_live)), oracle[:-1],
+               "LiveDeviceBatcher, numpy grouper")
     # the trace: a second batcher, the last five frames' pushes under the
     # profiler
     split = 30 * n_pkts
@@ -1577,11 +1682,23 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     rng[7, 9] ^= 1
     check(ls.cached_xyz(0, False, rng) is not None, "cached_xyz lost")
 
-    # 5. where the time goes, per frame
-    reader = port.FrameReader(path, info, strict_ports=True)
-    t0 = time.perf_counter()
-    reader._scan()
-    scan_s = time.perf_counter() - t0
+    # 5. where the time goes, per frame. The host staging stages run with
+    # the native library and with the numpy versions it replaces, on the
+    # same bytes (best of 3 each), and their outputs are held byte-equal.
+    def best_of(fn, n: int = 3):
+        best, out = float("inf"), None
+        for _ in range(n):
+            t0 = time.perf_counter()
+            out = fn()
+            best = min(best, time.perf_counter() - t0)
+        return best, out
+
+    def scanned(p):
+        reader = port.FrameReader(p, info, strict_ports=True)
+        reader._scan()
+        return reader
+
+    reader = scanned(path)
     t0 = time.perf_counter()
     lidar_ev, aux_ev = reader.hybrid_streams()
     inst = de._AuxRouter(de._AuxApplier(info), reader.plan, reader.pf,
@@ -1589,16 +1706,56 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     replay_s = time.perf_counter() - t0
     groups = [i.pkt_idx for i in inst]
     check(len(groups) == n_scans, f"replay: {len(groups)} instances")
-    t0 = time.perf_counter()
-    for _ in reader.iter_instance_batches(groups, 4):
-        pass
-    stage_s = time.perf_counter() - t0
-    print(f"engine stage capture scan (pcap read + reassembly, every "
-          f"datagram): {scan_s / n_scans * 1e3:.2f} ms/frame [{CARD}]")
+    main_reader = scanned(main_path)
+    stages = {  # name: (frames, timed call, call whose output is compared)
+        "capture scan (pcap read + reassembly, every datagram)": (
+            n_scans, lambda: port.FrameReader(path, info)._scan(), None),
+        "instance staging (single-frame grouper a scan, scan headers)": (
+            n_scans, lambda: [None for _ in reader.iter_instance_batches(
+                groups, 4)],
+            lambda: [[a.copy() for a in (b.frame_ids, b.planes, b.col_hdrs,
+                                         b.host_ts, b.pkt_ts, b.pkt_hdrs,
+                                         b.first_hdr)]
+                     for b in reader.iter_instance_batches(groups, 4)]),
+        "planar grouping (iter_planar_chunks(32), scan cached)": (
+            32, lambda: list(main_reader.iter_planar_chunks(32)), None),
+        "packet-layout grouping (iter_chunks(32), scan cached)": (
+            32, lambda: list(main_reader.iter_chunks(32)), None),
+    }
+    per_frame, outputs = {}, {}
+    for route in ("native", "numpy"):
+        with numpy_staging() if route == "numpy" else nullcontext():
+            # the cached scans are the route's own
+            for r in (reader, main_reader):
+                r._pools.pop("scan_cache", None)
+                r._scan()
+            for name, (frames, fn, out_fn) in stages.items():
+                secs, out = best_of(fn)
+                per_frame[route, name] = secs / frames * 1e3
+                outputs[route, name] = out if out_fn is None else out_fn()
+    for name in stages:
+        a, b = outputs["native", name], outputs["numpy", name]
+        flat_a = [x for item in a for x in (item if isinstance(
+            item, (tuple, list)) else (item,))]
+        flat_b = [x for item in b for x in (item if isinstance(
+            item, (tuple, list)) else (item,))]
+        check(len(flat_a) == len(flat_b) and all(
+            x.dtype == y.dtype and x.shape == y.shape and np.array_equal(x, y)
+            for x, y in zip(flat_a, flat_b)),
+            f"{name}: the native staging differs from the numpy one")
+        print(f"engine stage {name}: native {per_frame['native', name]:.3f} "
+              f"ms/frame, numpy {per_frame['numpy', name]:.2f} ms/frame, "
+              f"{per_frame['numpy', name] / per_frame['native', name]:.1f}x; "
+              f"outputs byte-equal [{CARD}]")
+    scan = next(iter(stages))
+    for name in list(stages)[2:]:
+        both = {route: per_frame[route, scan] + per_frame[route, name]
+                for route in ("native", "numpy")}
+        print(f"host staging, {name.split(' (')[0]} = capture scan + "
+              f"grouping: native {both['native']:.2f} ms/frame, numpy "
+              f"{both['numpy']:.2f} ms/frame [{CARD}]")
     print(f"engine stage admission replay (hybrid_streams + _AuxRouter): "
           f"{replay_s / n_scans * 1e3:.3f} ms/frame [{CARD}]")
-    print(f"engine stage instance staging (gather + single-frame grouper): "
-          f"{stage_s / n_scans * 1e3:.2f} ms/frame [{CARD}]")
     plan, pf = reader.plan, reader.pf
     for B in (4, 32):
         batch = next(reader.iter_instance_batches(groups[:B], B))
@@ -1633,7 +1790,155 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
               f"ms/frame [{CARD}]")
         print(f"engine stage materialization (LidarScan + field copies + "
               f"headers) B={B}: {best_m / B * 1e3:.3f} ms/frame [{CARD}]")
-    return launches
+    return launches, oracle
+
+
+def _run_sources(torch, port, tmp, info, oracle) -> None:
+    """The scan-source path: open_source(pcap) -> PcapScanSource -> the
+    engine -> LidarScans, on the engine path's capture, held against the
+    port's ScanBatcher over the same packets (`oracle`, with its release
+    points); then the index, the same path staged by the numpy versions,
+    and a two-sensor capture against the same source on the numpy batcher
+    (OUSTER_SDK_TPU_DEVICE_DECODE=0)."""
+    import copy
+
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.utils import native
+
+    env = "OUSTER_SDK_TPU_DEVICE_DECODE"
+    os.environ.pop(env, None)     # unset: the engine, on CUDA
+    path = os.path.join(tmp, "engine.pcap")
+    n_scans = len(oracle)
+
+    # 1. iteration, cold, at the engine's default batch of 4; the release
+    # points the merge orders by are recorded as they pass
+    iter_released = de.DeviceScanIterator.iter_released
+    released, devices = [], set()
+
+    def recorded(it):
+        devices.add(it.device.type)
+        for r, scan in iter_released(it):
+            released.append(r)
+            yield r, scan
+
+    def run():
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        native.reset_calls()
+        released.clear()
+        de.DeviceScanIterator.iter_released = recorded
+        try:
+            t0 = time.perf_counter()
+            sets = list(port.open_source(path, sensor_info=[info]))
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            de.DeviceScanIterator.iter_released = iter_released
+        check(all(len(ls) == 1 for ls in sets), "a set of more than one scan")
+        hold_scans(list(zip(released, (ls[0] for ls in sets))), oracle,
+                   "open_source")
+        check(devices == {"cuda"} and de.stats["batches"] == -(-n_scans // 4)
+              and de.stats["scans"] == n_scans,
+              f"open_source: the engine ran on {devices}, stats {de.stats}")
+        return sets, secs
+
+    sets, secs = run()
+    native_staged("scan-source path", 1, group_frames_planar=n_scans)
+    FPS["open_source"] = n_scans / secs
+    print(f"open_source end to end, cold, batch 4 (the default): {n_scans} "
+          f"frames pcap -> LidarScan in {secs:.3f} s = {n_scans / secs:.2f} "
+          f"frames/s; {de.stats['batches']} engine batches [{CARD}]")
+    with numpy_staging():
+        _, numpy_secs = run()
+    check(sum(native.calls.values()) == 0, "numpy staging called the library")
+    print(f"open_source with the numpy staging (the route without g++): "
+          f"{n_scans / numpy_secs:.2f} frames/s [{CARD}]")
+    # the spread: the engine's iterator and open_source, each cold, in turns
+    turns = {"DeviceScanIterator": [], "open_source": []}
+    for _ in range(3):
+        for name, make in (
+                ("DeviceScanIterator", lambda: de.DeviceScanIterator(
+                    path, info)),
+                ("open_source", lambda: port.open_source(
+                    path, sensor_info=[info]))):
+            t0 = time.perf_counter()
+            n = sum(1 for _ in make())
+            torch.cuda.synchronize()
+            turns[name].append(n / (time.perf_counter() - t0))
+    print("in turns, cold, batch 4, frames/s: " + "; ".join(
+        f"{name} {', '.join(f'{v:.2f}' for v in vals)}"
+        for name, vals in turns.items()) + f" [{CARD}]")
+
+    # 2. the index: length and random lookups equal to the iteration
+    t0 = time.perf_counter()
+    src = port.open_source(path, sensor_info=[info], index=True)
+    index_s = time.perf_counter() - t0
+    check(len(src) == n_scans and src.scans_num == [n_scans]
+          and src._lazy is not None,
+          f"index: {len(src)} sets, scans_num {src.scans_num}")
+    picks = [int(i) for i in
+             np.random.default_rng(4).choice(n_scans, 6, replace=False)]
+    t0 = time.perf_counter()
+    n = sum(scans_differ(src[i][0], sets[i][0]) for i in picks)
+    check(n == 0, f"open_source(index=True): lookups differ from the "
+          f"iteration in {n} elements")
+    print(f"open_source(index=True): len {len(src)}, lookups {picks}: {n} "
+          f"elements differ from the iteration; index built in "
+          f"{index_s:.3f} s, {(time.perf_counter() - t0) / 6 * 1e3:.1f} ms a "
+          f"lookup [{CARD}]")
+
+    # 3. two sensors on distinct ports, packets interleaved one by one:
+    # the engine (one iterator a sensor, merged) against the batcher
+    infos = [copy.deepcopy(info), copy.deepcopy(info)]
+    for k, (port_k, init_id, sn) in enumerate(((7502, 11, 1001),
+                                               (7512, 22, 2002))):
+        infos[k].config.udp_port_lidar = port_k
+        infos[k].init_id, infos[k].sn = init_id, sn
+    n_pkts = info.format.columns_per_frame // info.format.columns_per_packet
+    streams = [list(synth_packets(infos[0], range(1, 7), seed=11)),
+               list(synth_packets(infos[1], range(40, 45), seed=12))
+               + list(synth_packets(infos[1], [45], seed=13))[:n_pkts // 3]]
+    two = os.path.join(tmp, "two_sensors.pcap")
+    with port.PcapWriter(two) as writer:
+        ts = 10**9
+        for k in range(max(map(len, streams))):
+            for s, sinfo in zip(streams, infos):
+                if k < len(s):
+                    port_k = sinfo.config.udp_port_lidar
+                    writer.write(s[k][0], "10.0.0.2", "10.0.0.1", port_k,
+                                 port_k, ts)
+                    ts += 1000
+    got = {}
+    for value in ("1", "0"):
+        os.environ[env] = value
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        t0 = time.perf_counter()
+        src = port.open_source(two, sensor_info=infos)
+        order = list(src._iter_scans())
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got[value] = (order, de.stats["batches"],
+                      [[None if s is None else s.frame_id for s in ls]
+                       for ls in src])
+        print(f"open_source, two sensors, {env}={value}: {len(order)} scans "
+              f"in {secs:.3f} s, {de.stats['batches']} engine batches "
+              f"[{CARD}]")
+    os.environ.pop(env)
+    (dev_order, dev_batches, dev_sets), (ref_order, ref_batches,
+                                         ref_sets) = got["1"], got["0"]
+    seq = [i for i, _ in ref_order]
+    check(dev_batches > 0 and ref_batches == 0,
+          f"two sensors: engine batches {dev_batches} / {ref_batches}")
+    dev_ids = [(i, s.frame_id) for i, s in dev_order]
+    ref_ids = [(i, s.frame_id) for i, s in ref_order]
+    check(dev_ids == ref_ids and dev_sets == ref_sets,
+          f"two sensors: the engine yields {dev_ids}, the batcher {ref_ids}")
+    check(set(seq) == {0, 1} and seq != sorted(seq) and len(seq) == 6 + 6,
+          f"two sensors: yield order {seq} does not interleave the sensors")
+    n = sum(scans_differ(a, b) for (_, a), (_, b) in zip(dev_order, ref_order))
+    check(n == 0, f"two sensors: {n} elements differ between the routes")
+    print(f"open_source, two sensors on ports 7502 and 7512: yield order "
+          f"{seq}, {n} elements differ between the engine and the numpy "
+          f"batcher, collated sets equal")
 
 
 if __name__ == "__main__":

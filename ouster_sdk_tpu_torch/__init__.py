@@ -35,6 +35,13 @@ OsfDeviceProjector attaches double-single XYZ to scans whose ranges were
 decoded elsewhere (ops.planar_kernels.project_ranges, the planar kernel
 again).
 
+The scan sources: what a user opens. `open_source("capture.pcap")`
+gives a PcapScanSource (io.pcap_scan_source) whose scans decode on the
+device engine, one DeviceScanIterator a sensor merged in packet order, or
+on the numpy ScanBatcher when OUSTER_SDK_TPU_DEVICE_DECODE=0; the host
+staging under every path runs in the native library (utils.native, the
+port's own C++ copy, built with g++ at first use).
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
@@ -43,6 +50,9 @@ from __future__ import annotations
 
 from .core.batcher import ScanBatcher
 from .core.constants import ChanField
+from .core.error_handler import (Severity, default_error_handler,
+                                 logging_error_handler)
+from .core.logging import init_logger
 from .core.field import ChanFieldType, FieldClass, FieldType
 from .core.lidar_scan import (LidarScan, get_field_types,
                               resolve_field_types)
@@ -56,6 +66,14 @@ from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
                                supports_osf_device_projection)
 from .io.frames import FrameReader, PlanarBatch
 from .io.pcap import PcapReader, PcapWriter
+from .io.pcap_scan_source import PcapScanSource
+from .io.pcap_source import PcapPacketSource
+from .io.sources import (Collator, IoType, LidarScanSet, MultiScanSource,
+                         OusterIoType, PacketSource, ScanSource, Singler,
+                         Slicer, SourceURLException, collate, collate_scans,
+                         extension_from_io_type, io_type,
+                         io_type_from_extension, open_packet_source,
+                         open_source, populate_extrinsics)
 from .ops.destagger import destagger, destagger_torch
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
 from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
@@ -83,22 +101,28 @@ from .state import lidar_scan_from_jax, lidar_scan_from_numpy
 
 __all__ = [
     "cartesian", "cartesian_dd", "cartesian_f32", "ChanField",
-    "ChanFieldType", "DataFormat", "decode_frame", "decode_frame_batch",
-    "decode_frame_planar", "decode_frame_planar_batch", "default_device",
+    "ChanFieldType", "collate", "collate_scans", "Collator", "DataFormat",
+    "decode_frame", "decode_frame_batch", "decode_frame_planar",
+    "decode_frame_planar_batch", "default_device", "default_error_handler",
     "default_sensor_info", "destagger", "destagger_torch",
     "DeviceScanIndex", "DeviceScanIterator", "dewarp", "dewarp_np",
-    "exp_pose", "FactorTables", "FieldClass", "FieldType",
-    "frame_words_from_packets", "FrameReader", "get_field_types",
-    "HeaderType", "ImuPacket", "interp_pose", "interp_pose_np",
-    "interp_trajectory", "launches", "lidar_scan_from_jax",
+    "exp_pose", "extension_from_io_type", "FactorTables", "FieldClass",
+    "FieldType", "frame_words_from_packets", "FrameReader",
+    "get_field_types", "HeaderType", "ImuPacket", "init_logger",
+    "interp_pose", "interp_pose_np", "interp_trajectory", "io_type",
+    "io_type_from_extension", "IoType", "launches", "lidar_scan_from_jax",
     "lidar_scan_from_numpy", "LidarMode", "LidarPacket", "LidarScan",
-    "LiveDeviceBatcher", "log_pose", "lut_planes", "lutfree_supported",
+    "LidarScanSet", "LiveDeviceBatcher", "log_pose",
+    "logging_error_handler", "lut_planes", "lutfree_supported",
     "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
-    "OsfDeviceProjector", "Packet", "PacketFormat", "PacketWriter",
-    "PcapReader", "PcapWriter", "PipelineConfig", "PlanarBatch",
-    "PlanarLut", "project_ranges", "reset_launches", "resolve_field_types",
-    "ScanBatcher", "ScanPipeline", "sensor_info_from_metadata",
-    "SensorInfo", "supports_device_decode",
+    "MultiScanSource", "open_packet_source", "open_source",
+    "OsfDeviceProjector", "OusterIoType", "Packet", "PacketFormat",
+    "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
+    "PcapScanSource", "PcapWriter", "PipelineConfig", "PlanarBatch",
+    "PlanarLut", "populate_extrinsics", "project_ranges", "reset_launches",
+    "resolve_field_types", "ScanBatcher", "ScanPipeline", "ScanSource",
+    "sensor_info_from_metadata", "SensorInfo", "Severity", "Singler",
+    "Slicer", "SourceURLException", "supports_device_decode",
     "supports_osf_device_projection", "to_device_lut", "transform",
     "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unpack_project",
     "unpack_project_lutfree", "unpack_project_lutfree_dd",

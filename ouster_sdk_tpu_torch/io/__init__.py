@@ -1,0 +1,44 @@
+"""IO namespace: pcap reading and writing, the pcap packet and scan
+sources, the scan-source layer with open_source, the frame staging and the
+device engine."""
+
+from .pcap import (  # noqa: F401
+    PacketInfo,
+    PcapDuplicatePortException,
+    PcapReader,
+    PcapWriter,
+    StreamKey,
+    StreamStats,
+    get_stream_info,
+    guess_ports,
+    record,
+    stream_info,
+)
+from .pcap_source import (  # noqa: F401
+    PcapPacketSource,
+    RecordingPacketSource,
+    ichunked_before,
+    resolve_metadata_paths,
+)
+from .pcap_scan_source import PcapScanSource  # noqa: F401
+from .sources import (  # noqa: F401
+    Collator,
+    IoType,
+    LidarScanSet,
+    MultiScanSource,
+    OusterIoType,
+    PacketSource,
+    ScanSource,
+    ScanSourceOptions,
+    SingleScanSource,
+    Slicer,
+    SourceURLException,
+    collate,
+    collate_scans,
+    extension_from_io_type,
+    io_type,
+    io_type_from_extension,
+    open_packet_source,
+    open_source,
+    populate_extrinsics,
+)

@@ -26,6 +26,7 @@ tensors.
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
@@ -40,7 +41,7 @@ from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.planar_kernels import PlanarLut, project_ranges, words_tensor
 from ..ops.unpack import decode_frame_planar_batch, make_decode_plan
 from ..ops.xyzlut import make_xyz_lut
-from .frames import FrameReader, group_frames_planar
+from .frames import FrameReader, stage_planar
 
 #: Introspection counters (reset freely in tests): proof of which engine
 #: decoded. `batches` counts device dispatches (decode batches and
@@ -51,6 +52,19 @@ stats = {"batches": 0, "scans": 0, "osf_batches": 0}
 
 def _device(device) -> torch.device:
     return default_device() if device is None else torch.device(device)
+
+
+def device_decode_enabled() -> bool:
+    """The scan sources' routing policy, read when a source iterates:
+    OUSTER_SDK_TPU_DEVICE_DECODE=0 asks for the numpy ScanBatcher; 1 or
+    unset is the engine on the source's device (CUDA unless the caller
+    names another, and an error without a GPU: there is no quiet move to
+    the numpy batcher)."""
+    env = os.environ.get("OUSTER_SDK_TPU_DEVICE_DECODE", "").strip()
+    if env not in ("", "0", "1"):
+        raise ValueError(f"OUSTER_SDK_TPU_DEVICE_DECODE={env!r}: expected "
+                         "0 or 1")
+    return env != "0"
 
 
 def supports_device_decode(info: SensorInfo,
@@ -917,11 +931,12 @@ class LiveDeviceBatcher:
             self._ring_events[slot] = None
         planes = planes_t.numpy().view(np.uint32)
         colhdr = colhdr_t.numpy().view(np.uint32)
-        _, nf = group_frames_planar(
-            self._slab[:self._n].view("<u4"), self._ts[:self._n], self.pf,
-            plan, planes, colhdr, self._fid_out, self._ts_out,
-            out_pkt_ts=self._pkt_ts, out_pkt_hdrs=self._pkt_hdrs,
-            out_first_hdr=self._first_hdr)
+        size = self._slab.shape[1]
+        _, nf = stage_planar(
+            self._slab.reshape(-1), np.arange(self._n, dtype=np.int64) * size,
+            self._ts[:self._n], self.pf, plan, planes, colhdr, self._fid_out,
+            self._ts_out, out_pkt_ts=self._pkt_ts,
+            out_pkt_hdrs=self._pkt_hdrs, out_first_hdr=self._first_hdr)
         self._released = self._cur if self._cur >= 0 else self._released
         self._n = 0
         self._cur = -1

@@ -21,18 +21,19 @@ previous id (a straggler of the frame just released) is dropped. Packets
 land in their slot by measurement id; slots no packet filled stay zero,
 and so decode as invalid columns.
 
-Two functions stand in for the SDK's native host library, with its
-contracts: `pcap_scan` (one pass over a capture: every reassembled UDP
-datagram with its size, host timestamp and ports) and
-`group_frames_planar` (word-planar grouping of a packet run, with the
-per-packet scan headers the device engine materializes LidarScans from).
-The device engine's staging, `hybrid_streams` and `iter_instance_batches`,
-is built on them.
+Staging runs in the native host library (utils/native.py, built with
+g++ at first use): one pass over the capture (`pcap_scan`), then the
+packet-layout grouper or the word-planar grouper with the per-packet scan
+headers the device engine materializes LidarScans from. Where no g++ is
+found the numpy versions here run instead, with the same contracts and
+the same bytes out: `pcap_scan`, `group_frames_planar` and `_group`. They
+are also the oracle the native staging is tested against.
 """
 
 from __future__ import annotations
 
 import os
+import struct
 from dataclasses import dataclass
 from typing import Iterator, List, Optional, Tuple
 
@@ -42,7 +43,8 @@ from ..core.types import SensorInfo, UDPProfileIMU, UDPProfileLidar
 from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.unpack import (DecodePlan, frame_words_from_packets,
                           make_decode_plan)
-from .pcap import PcapReader
+from ..utils import native
+from .pcap import _PCAP_MAGICS, PcapReader
 
 
 @dataclass
@@ -319,6 +321,43 @@ def group_frames_planar(pk_words: np.ndarray, ts: Optional[np.ndarray],
     return consumed, len(frames)
 
 
+def _frame_id_field(pf: PacketFormat) -> Tuple[int, int, int]:
+    """(byte, shift, mask) of the packet header's frame id, as the native
+    groupers read it: an 8-byte little-endian load at `byte`."""
+    fid = pf.geom.frame_id
+    byte, shift = divmod(int(fid.bit_start), 8)
+    return byte, shift, (1 << int(fid.bit_size)) - 1
+
+
+def stage_planar(payloads: np.ndarray, offs: np.ndarray,
+                 ts: Optional[np.ndarray], pf: PacketFormat,
+                 plan: DecodePlan, out_planes: np.ndarray,
+                 out_colhdr: np.ndarray, out_fids: np.ndarray,
+                 out_ts: np.ndarray, word_sel: Optional[np.ndarray] = None,
+                 out_pkt_ts: Optional[np.ndarray] = None,
+                 out_pkt_hdrs: Optional[np.ndarray] = None,
+                 out_first_hdr: Optional[np.ndarray] = None,
+                 io_released: Optional[np.ndarray] = None
+                 ) -> Tuple[int, int]:
+    """group_frames_planar over the lidar packets at byte offsets `offs` of
+    `payloads` (u8): the native grouper where the library is built, else
+    the numpy version on the gathered packets. Same outputs, same return."""
+    if native.get_lib() is None:
+        return group_frames_planar(
+            _gather_packets(payloads, offs, pf.lidar_packet_size), ts, pf,
+            plan, out_planes, out_colhdr, out_fids, out_ts, word_sel,
+            out_pkt_ts, out_pkt_hdrs, out_first_hdr, io_released)
+    fid_byte, fid_shift, fid_mask = _frame_id_field(pf)
+    return native.group_frames_planar(
+        payloads, offs, ts, pf.lidar_packet_size, fid_byte, fid_shift,
+        fid_mask, pf.packet_header_size, pf.col_size, pf.col_header_size,
+        plan.mid_word * 4, plan.cpp, plan.h, plan.pw, plan.w, out_planes,
+        out_colhdr, out_fids, out_ts, word_sel=word_sel,
+        out_pkt_ts=out_pkt_ts, out_pkt_hdrs=out_pkt_hdrs,
+        out_first_hdr=out_first_hdr, io_released=io_released,
+        ftr_words=plan.schw - plan.chw)
+
+
 class FrameReader:
     """Stage one sensor's lidar frames from a pcap.
 
@@ -348,9 +387,32 @@ class FrameReader:
         cached = self._pools.get("scan_cache")
         if cached is not None and cached[0] == key:
             return cached[1]
-        res = pcap_scan(self._path)
+        res = (self._native_scan(st.st_size) if native.get_lib() is not None
+               else pcap_scan(self._path))
         self._pools["scan_cache"] = (key, res)
         return res
+
+    def _native_scan(self, size: int):
+        """native.pcap_scan over a map of the file (read once in order; the
+        capture's pages stay file-backed), into a workspace this reader
+        keeps."""
+        if size < 24:
+            return (np.zeros(0, np.uint8), np.zeros(0, np.int64),
+                    np.zeros(0, np.int64), np.zeros(0, np.uint64),
+                    np.zeros(0, np.uint32), np.zeros(0, np.uint32))
+        data = np.memmap(self._path, np.uint8, mode="r")
+        # the table maps the magic READ LITTLE-ENDIAN to the file's byte
+        # order: a big-endian capture reads as the swapped magic, which is
+        # also a key
+        magic = struct.unpack("<I", data[:4].tobytes())[0]
+        if magic not in _PCAP_MAGICS:
+            raise ValueError(f"{self._path}: unknown pcap magic")
+        endian, ts_scale = _PCAP_MAGICS[magic]
+        linktype = struct.unpack(endian + "I", data[20:24].tobytes())[0] \
+            & 0x0FFFFFFF
+        ws = self._pools.setdefault("scan_ws", {})
+        return native.pcap_scan(data, endian == ">", ts_scale == 1, linktype,
+                                workspace=ws)
 
     def _stream_mask(self, sizes: np.ndarray, ports: np.ndarray,
                      size: int, port: int, strict: bool) -> np.ndarray:
@@ -374,13 +436,18 @@ class FrameReader:
                                  self.info.config.udp_port_lidar or 0,
                                  strict=self._strict_ports)
 
+    def _lidar_datagrams(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(payloads, byte offsets, host ts) of this sensor's lidar
+        datagrams, in capture order, from the capture scan."""
+        payloads, offsets, sizes, ts, ports, _ = self._scan()
+        lidar = self._lidar_mask(sizes, ports)
+        return payloads, offsets[lidar], ts[lidar]
+
     def _lidar_packets(self) -> Tuple[np.ndarray, np.ndarray]:
         """All lidar datagrams of this sensor, in capture order: words
         (n, pkt_words) u32 and host timestamps (n,) u64."""
-        payloads, offsets, sizes, ts, ports, _ = self._scan()
-        lidar = self._lidar_mask(sizes, ports)
-        return (_gather_packets(payloads, offsets[lidar],
-                                self.pf.lidar_packet_size), ts[lidar])
+        payloads, offs, ts = self._lidar_datagrams()
+        return _gather_packets(payloads, offs, self.pf.lidar_packet_size), ts
 
     # -- the device engine's staging ------------------------------------------
     def _aux_streams(self) -> List[Tuple[str, int, int]]:
@@ -541,12 +608,11 @@ class FrameReader:
                 planes, hdrs, pkt_ts, pkt_hdrs, first_hdr = pools[flip]
                 flip = (flip + 1) % len(pools)
                 for k, grp in enumerate(sel):
-                    group_frames_planar(
-                        _gather_packets(payloads, offsets[grp],
-                                        pf.lidar_packet_size),
-                        ts[grp], pf, plan, planes[k:k + 1], hdrs[k:k + 1],
-                        fid_out[k:k + 1], ts_out[k:k + 1],
-                        out_pkt_ts=pkt_ts[k:k + 1],
+                    # slices on axis 0 of C-contiguous pools: contiguous
+                    stage_planar(
+                        payloads, offsets[grp], ts[grp], pf, plan,
+                        planes[k:k + 1], hdrs[k:k + 1], fid_out[k:k + 1],
+                        ts_out[k:k + 1], out_pkt_ts=pkt_ts[k:k + 1],
                         out_pkt_hdrs=pkt_hdrs[k:k + 1],
                         out_first_hdr=first_hdr[k:k + 1])
                 n = len(sel)
@@ -577,8 +643,15 @@ class FrameReader:
         """Yield (frame_ids (m,) i64, frames (m, n_pkts, pkt_words) u32,
         host_ts (m,) u64) for chunks of up to `chunk` packet-layout
         frames; host_ts is the capture time of the packet that opened the
-        frame."""
+        frame. Every yielded array is the caller's own.
+
+        One native grouper call a chunk where the library is built: it
+        resumes where the last call stopped, carrying the released frame
+        id across the break."""
         plan = self.plan
+        if native.get_lib() is not None:
+            yield from self._native_chunks(chunk)
+            return
         pk_words, ts = self._lidar_packets()
         if pk_words.shape[0] == 0:
             return
@@ -597,6 +670,29 @@ class FrameReader:
             yield (np.asarray([fids[g[0]] for g in sel], dtype=np.int64),
                    frames,
                    np.asarray([ts[g[0]] for g in sel], dtype=np.uint64))
+
+    def _native_chunks(self, chunk: int) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """iter_chunks through native.group_frames."""
+        plan, pf = self.plan, self.pf
+        payloads, offs, tss = self._lidar_datagrams()
+        fid_byte, fid_shift, fid_mask = _frame_id_field(pf)
+        fid_out = np.zeros(chunk, np.int64)
+        ts_out = np.zeros(chunk, np.uint64)
+        released = np.full(1, -1, np.int64)
+        pos = 0
+        while pos < offs.size:
+            frames = np.empty((chunk, plan.n_pkts, plan.pkt_words),
+                              np.uint32)
+            consumed, nf = native.group_frames(
+                payloads, offs[pos:], tss[pos:], pf.lidar_packet_size,
+                fid_byte, fid_shift, fid_mask,
+                (plan.hw + plan.mid_word) * 4, plan.cpp, plan.n_pkts, frames,
+                fid_out, ts_out, io_released=released)
+            if nf == 0:
+                break
+            pos += consumed
+            yield fid_out[:nf].copy(), frames[:nf], ts_out[:nf].copy()
 
     def __iter__(self) -> Iterator[Tuple[int, np.ndarray, int]]:
         """(frame_id, frame (n_pkts, pkt_words) u32, host_ts) per frame."""
@@ -653,24 +749,30 @@ class FrameReader:
         """Yield (frame_ids (m,) i64, planes (m, pw | len(words), h, W) u32,
         col_hdrs (m, schw, W) u32, host_ts (m,) u64) for chunks of up to
         `chunk` frames. `words` stages only the listed packet words, in
-        the given order (projection needs only the range words)."""
+        the given order (projection needs only the range words). Every
+        yielded array is the caller's own.
+
+        One grouper call a chunk (stage_planar: the native one where the
+        library is built), resumed where the last call stopped with the
+        released frame id carried across the break."""
         if words is not None and len(words) == 0:
             raise ValueError("words must be a non-empty tuple or None")
-        plan = self.plan
-        word_sel = np.arange(plan.pw) if words is None else \
-            np.asarray(words, dtype=np.int64)
-        pk_words, ts = self._lidar_packets()
-        if pk_words.shape[0] == 0:
-            return
-        fids = read_bits(pk_words, self.pf.geom.frame_id).astype(np.int64)
-        groups = _group(fids, self.pf.max_frame_id)[0]
-        for base in range(0, len(groups), chunk):
-            sel = groups[base:base + chunk]
-            m = len(sel)
-            planes = np.zeros((m, word_sel.size, plan.h, plan.w), np.uint32)
-            hdrs = np.zeros((m, plan.schw, plan.w), np.uint32)
-            for k, idx in enumerate(sel):
-                _stage(plan, pk_words[idx], word_sel, planes[k], hdrs[k])
-            yield (np.asarray([fids[g[0]] for g in sel], dtype=np.int64),
-                   planes, hdrs,
-                   np.asarray([ts[g[0]] for g in sel], dtype=np.uint64))
+        plan, pf = self.plan, self.pf
+        word_sel = None if words is None else np.asarray(words, np.int64)
+        payloads, offs, tss = self._lidar_datagrams()
+        n_planes = plan.pw if word_sel is None else word_sel.size
+        fid_out = np.zeros(chunk, np.int64)
+        ts_out = np.zeros(chunk, np.uint64)
+        released = np.full(1, -1, np.int64)
+        pos = 0
+        while pos < offs.size:
+            planes = np.empty((chunk, n_planes, plan.h, plan.w), np.uint32)
+            hdrs = np.empty((chunk, plan.schw, plan.w), np.uint32)
+            consumed, nf = stage_planar(
+                payloads, offs[pos:], tss[pos:], pf, plan, planes, hdrs,
+                fid_out, ts_out, word_sel=word_sel, io_released=released)
+            if nf == 0:
+                break
+            pos += consumed
+            yield (fid_out[:nf].copy(), planes[:nf], hdrs[:nf],
+                   ts_out[:nf].copy())

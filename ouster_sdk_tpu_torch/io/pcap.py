@@ -142,6 +142,7 @@ class PcapReader:
     def __init__(self, path: str):
         import mmap
 
+        self._path = path
         self._f = open(path, "rb")
         try:
             # O(1) resident memory for multi-GB captures; bytes are
@@ -185,6 +186,18 @@ class PcapReader:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+    def reset(self) -> None:
+        self._pos = 24
+        self._reasm = IpReassembler()
+
+    @property
+    def path(self) -> str:
+        return self._path
+
+    def seek(self, file_offset: int) -> None:
+        self._pos = file_offset
+        self._reasm = IpReassembler()
 
     def __iter__(self) -> Iterator[Tuple[PacketInfo, bytes]]:
         return self
@@ -318,6 +331,80 @@ class PcapReader:
         return info, udp_payload
 
 
+@dataclass
+class StreamKey:
+    src_ip: str
+    dst_ip: str
+    src_port: int
+    dst_port: int
+
+    def __hash__(self) -> int:
+        return hash((self.src_ip, self.dst_ip, self.src_port, self.dst_port))
+
+
+@dataclass
+class StreamStats:
+    """Per-(flow, payload-size) packet counts for guessing which streams are
+    lidar/imu (ref: ouster_pcap/include/ouster/os_pcap.h:89-178)."""
+
+    count: int = 0
+    sizes: Dict[int, int] = None  # payload size -> count
+
+    def __post_init__(self):
+        if self.sizes is None:
+            self.sizes = {}
+
+
+def stream_info(path: str, max_packets: int = 0) -> Dict[Tuple, StreamStats]:
+    """Scan a pcap and collect per-flow payload-size histograms, keyed by
+    (dst_ip, dst_port)."""
+    out: Dict[Tuple, StreamStats] = {}
+    n = 0
+    with PcapReader(path) as reader:
+        for info, payload in reader:
+            st = out.setdefault((info.dst_ip, info.dst_port), StreamStats())
+            st.count += 1
+            st.sizes[len(payload)] = st.sizes.get(len(payload), 0) + 1
+            n += 1
+            if max_packets and n >= max_packets:
+                break
+    return out
+
+
+#: Reference binding alias (ref: pcap.pyi get_stream_info).
+get_stream_info = stream_info
+
+
+def guess_ports(stream_stats, lidar_packet_size: int,
+                imu_packet_size: int, lidar_spec: int = 0,
+                imu_spec: int = 0):
+    """Candidate (lidar_port, imu_port) pairs from per-flow payload
+    sizes (ref: pcap.pyi guess_ports / sdk/pcap/pcap.py _guess_ports):
+    a port qualifies when its dominant payload size matches the
+    expected packet size; explicit spec ports filter the candidates."""
+    lidar_ports = set()
+    imu_ports = set()
+    for (dst_ip, dst_port), st in stream_stats.items():
+        if not st.sizes:
+            continue
+        dominant = max(st.sizes, key=st.sizes.get)
+        if dominant == lidar_packet_size and \
+                (not lidar_spec or dst_port == lidar_spec):
+            lidar_ports.add(dst_port)
+        if dominant == imu_packet_size and \
+                (not imu_spec or dst_port == imu_spec):
+            imu_ports.add(dst_port)
+    guesses = [(lp, ip) for lp in (lidar_ports or {0})
+               for ip in (imu_ports or {0}) if lp != ip or lp == 0]
+    guesses.sort(reverse=True, key=lambda p: (p[0] != 0, p[1] != 0, p))
+    return guesses
+
+
+class PcapDuplicatePortException(RuntimeError):
+    """Multiple sensors with the same UDP port in one capture and no
+    way to disambiguate (ref: indexed_pcap_reader.h:147)."""
+
+
 class PcapWriter:
     """Record UDP packets to a classic pcap file (Ethernet frames, with IPv4
     fragmentation for payloads over MTU)
@@ -367,3 +454,44 @@ class PcapWriter:
 
     def __exit__(self, *exc) -> None:
         self.close()
+
+
+def record(packets, pcap_path: str, *,
+           src_ip: str = "127.0.0.1", dst_ip: str = "127.0.0.1",
+           lidar_port: int = 7502, imu_port: int = 7503) -> int:
+    """Record a finite sequence of lidar and IMU packets to a pcap file
+    (ref: sdk/pcap/pcap.py:77-133 record). A packet without a host
+    timestamp is stamped with the time of writing. Returns the packet
+    count; a file left with no packet by an error is removed."""
+    import time
+
+    from ..core.packets import ImuPacket, LidarPacket
+
+    has_timestamp = None
+    n = 0
+    error = False
+    writer = PcapWriter(pcap_path)
+    try:
+        for packet in packets:
+            if isinstance(packet, LidarPacket):
+                port = lidar_port
+            elif isinstance(packet, ImuPacket):
+                port = imu_port
+            else:
+                raise ValueError("Unexpected packet type")
+            if has_timestamp is None:
+                has_timestamp = packet.host_timestamp != 0
+            elif has_timestamp != (packet.host_timestamp != 0):
+                raise ValueError(
+                    "Mixing timestamped/untimestamped packets")
+            ts = packet.host_timestamp or int(time.time() * 1e9)
+            writer.write(bytes(packet.buf), src_ip, dst_ip, port, port, ts)
+            n += 1
+    except Exception:
+        error = True
+        raise
+    finally:
+        writer.close()
+        if error and n == 0 and os.path.exists(pcap_path):
+            os.remove(pcap_path)
+    return n

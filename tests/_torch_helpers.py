@@ -184,20 +184,27 @@ def poses(B: int, w: int, seed: int = 7) -> np.ndarray:
 
 # -- packet streams, captures and scans for the device engine tests ---------
 
-def engine_infos(profile: str, w: int = 256, h: int = 32, *,
-                 column_window=None, init_id: int = 0, sn: int = 0,
-                 nmea_imu: bool = False, zone_port: int = 0,
-                 extrinsic=None):
+def engine_infos(profile: str, w: int = 256, h: int = 32, **knobs):
     """(JAX SensorInfo, port SensorInfo) of one synthetic sensor with the
-    knobs the engine tests turn: an azimuth window, ids for the packet id
-    check, an ACCEL32_GYRO32_NMEA IMU stream (port 7503, 2 packets of 4
-    measurements a frame), a zone-monitoring stream on `zone_port`, an
-    extrinsic. Both are parsed from the same metadata string."""
+    knobs the engine tests turn (engine_metadata's), both parsed from the
+    same metadata string."""
+    meta = engine_metadata(profile, w, h, **knobs)
+    return jax_sensor_info(meta), pt.sensor_info_from_metadata(meta)
+
+
+def engine_metadata(profile: str, w: int = 256, h: int = 32, *,
+                    column_window=None, init_id: int = 0, sn: int = 0,
+                    nmea_imu: bool = False, zone_port: int = 0,
+                    extrinsic=None, lidar_port: int = 7502) -> str:
+    """The metadata string of one synthetic sensor: an azimuth window, ids
+    for the packet id check, an ACCEL32_GYRO32_NMEA IMU stream (port 7503,
+    2 packets of 4 measurements a frame), a zone-monitoring stream on
+    `zone_port`, an extrinsic, the lidar port."""
     from ouster_sdk_tpu.core.types import UDPProfileIMU
 
     info = _make_info(w=w, h=h, dual=False)
     info.format.udp_profile_lidar = UDPProfileLidar(profile)
-    info.config.udp_port_lidar = 7502
+    info.config.udp_port_lidar = lidar_port
     info.init_id, info.sn = init_id, sn
     if column_window is not None:
         info.format.column_window = tuple(column_window)
@@ -214,8 +221,7 @@ def engine_infos(profile: str, w: int = 256, h: int = 32, *,
     if extrinsic is not None:
         meta.setdefault("ouster-sdk", {})["extrinsic"] = \
             np.asarray(extrinsic, np.float64).reshape(-1).tolist()
-    meta = json.dumps(meta)
-    return jax_sensor_info(meta), pt.sensor_info_from_metadata(meta)
+    return json.dumps(meta)
 
 
 def frame_packets(jinfo, fid: int, seed: int = 0, ts0: int = 10**6,

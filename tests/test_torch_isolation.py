@@ -153,6 +153,47 @@ def test_engine_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_sources_run_with_jax_unimportable():
+    """open_source over a pcap (engine route on the CPU, and the numpy
+    batcher) with jax and the JAX package unimportable, the native library
+    built from the port's own copy of its source into a fresh directory."""
+    code = textwrap.dedent(f"""
+        import os, sys, tempfile
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        from ouster_sdk_tpu_torch.utils import native
+        tmp = tempfile.mkdtemp()
+        native.BUILD_DIR = os.path.join(tmp, "build")
+        assert native.SOURCE.startswith({PORT!r} + os.sep)
+        assert native.get_lib() is not None and native.build_seconds > 0
+        assert os.listdir(native.BUILD_DIR)
+        info = cs.synth_info(cs.MAIN_PROFILE, w=128, h=16)
+        path = os.path.join(tmp, "m.pcap")
+        cs.synth_capture(path, info, 3)
+        oracle = cs.batcher_scans(pt, info, cs.capture_packets(pt, info,
+                                                               path))
+        for env in ("1", "0"):
+            os.environ["OUSTER_SDK_TPU_DEVICE_DECODE"] = env
+            native.reset_calls()
+            pt.io.device_engine.stats["batches"] = 0
+            got = [ls[0] for ls in pt.open_source(path, sensor_info=[info],
+                                                  device="cpu")]
+            assert got == [s for _, s in oracle] and len(got) == 3
+            assert (pt.io.device_engine.stats["batches"] > 0) == (env == "1")
+            assert native.calls["pcap_scan"] == (env == "1")
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     _, pinfo = infos(DUAL)
     if torch.cuda.is_available():
