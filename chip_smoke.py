@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels and the native host library (g++, the port's own
 C++ copy) from the sources in this checkout, synthesizes captures with the
-port's own packet and pcap writers, and drives the port's five paths
+port's own packet and pcap writers, and drives the port's six paths
 through the entry points a user calls. Every path stages its packets
 through the native library: its call counts are read after each path and
 the run fails unless each path made a capture scan and grouper calls.
@@ -33,7 +33,20 @@ open last frame. The scan-source path: open_source(pcap) -> PcapScanSource
 LidarScans, held equal to the same ScanBatcher with the same release
 points, indexed (len and random lookups), and on a two-sensor capture
 held equal to the same source on the numpy batcher
-(OUSTER_SDK_TPU_DEVICE_DECODE=0), yield order included.
+(OUSTER_SDK_TPU_DEVICE_DECODE=0), yield order included. The OSF path: the
+engine capture's 35 scans, the same scans under a sensor with an extrinsic
+(two LUT variants) and the two-sensor capture's collated sets are written
+with the port's OSF Writer (PNG), then read back through open_source(osf)
+-> OsfScanSource (mmap, host PNG decode with the native unfilter) ->
+OsfDeviceProjector (planar_project, one launch a window of 4 scans and
+frame) -> LidarScans with XYZ caches: iteration, random lookups and the
+collated sets, every scan equal to what was written, every cache bit-equal
+to the plain _proj_lean on the card and within 1 f32 ulp of the f64 LUT,
+XYZLut(info)(scan) serving the cache and recomputing for a mutated RANGE;
+its write and read times, the read's split (open, inflate, unfilter,
+stagger, the rest of the decode, the projector) and the projector window's
+split (gather, copy in, kernel, copy back, attach) are printed, and its
+frames/s in turns with the policy off and with the pcap engine.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -61,7 +74,7 @@ to LidarScan, the live path's time a push and a flush and the projector's
 time a window are printed on lines of their own, and so are the host
 staging stages with the native library beside the numpy versions it
 replaces (io/frames.py keeps them: the route on a host without g++) on the
-same bytes, held byte-equal, and the frames/s of the five paths.
+same bytes, held byte-equal, and the frames/s of the six paths.
 
 Prints the card's name and power limit, a `kernels` JSON line of twelve
 entries, and last
@@ -806,7 +819,13 @@ def _run(torch, port, pk, dev, tmp) -> int:
     kernels[0]["launches"] += engine_launches
     print(f"planar_project<planar>: {launches['planar']} launches on the "
           f"planar path + {engine_launches} on the engine path")
-    _run_sources(torch, port, tmp, captures[MAIN_PROFILE][0], oracle)
+    two_sensor = _run_sources(torch, port, tmp, captures[MAIN_PROFILE][0],
+                              oracle)
+    osf_launches = _run_osf(torch, port, pk, dev, tmp,
+                            captures[MAIN_PROFILE][0], oracle, two_sensor)
+    kernels[0]["launches"] += osf_launches
+    print(f"planar_project<planar>: {osf_launches} more launches on the OSF "
+          f"path; {kernels[0]['launches']} in all")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -1375,6 +1394,7 @@ class count_calls:
 
     def __init__(self, module, name: str):
         self.module, self.name, self.n, self.seconds = module, name, 0, 0.0
+        self.times = []
 
     def __enter__(self):
         self.fn = getattr(self.module, self.name)
@@ -1385,7 +1405,8 @@ class count_calls:
             try:
                 return self.fn(*args, **kwargs)
             finally:
-                self.seconds += time.perf_counter() - t0
+                self.times.append(time.perf_counter() - t0)
+                self.seconds += self.times[-1]
 
         setattr(self.module, self.name, counted)
         return self
@@ -1632,6 +1653,22 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     check(pk.launches["planar"] == before + 2,
           f"extrinsic window launched {pk.launches['planar'] - before}")
     launches += 2
+    # does a window's time follow the scans it is given? The iterator's
+    # scans and the ScanBatcher's in turns, warm, then the window's steps
+    times = {"iterator's": [], "ScanBatcher's": []}
+    for base in (4, 8, 12, 16):
+        for name, group in (("iterator's", scans), ("ScanBatcher's", oracle)):
+            t0 = time.perf_counter()
+            proj.attach([(0, s) for _, s in group[base:base + 4]])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    split = osf_window_split(torch, pk, dev, proj._sensor_ctx(0)[2][0],
+                             [s for _, s in scans[:4]])
+    print("projector window, warm, in turns, ms: " + "; ".join(
+        f"on the {name} scans {', '.join(f'{v:.2f}' for v in vals)}"
+        for name, vals in times.items()) + "; steps on the iterator's "
+        "scans, best of 5: " + ", ".join(f"{k} {v:.3f}"
+                                         for k, v in split.items())
+        + f" [{CARD}]")
 
     # XYZ: against the planar path's kernel on the same frames, the plain
     # version on the card and the f64 LUT
@@ -1793,13 +1830,14 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
     return launches, oracle
 
 
-def _run_sources(torch, port, tmp, info, oracle) -> None:
+def _run_sources(torch, port, tmp, info, oracle):
     """The scan-source path: open_source(pcap) -> PcapScanSource -> the
     engine -> LidarScans, on the engine path's capture, held against the
     port's ScanBatcher over the same packets (`oracle`, with its release
     points); then the index, the same path staged by the numpy versions,
     and a two-sensor capture against the same source on the numpy batcher
-    (OUSTER_SDK_TPU_DEVICE_DECODE=0)."""
+    (OUSTER_SDK_TPU_DEVICE_DECODE=0). Returns the two sensors' infos and
+    the engine route's collated sets of that capture."""
     import copy
 
     from ouster_sdk_tpu_torch.io import device_engine as de
@@ -1916,15 +1954,16 @@ def _run_sources(torch, port, tmp, info, oracle) -> None:
         order = list(src._iter_scans())
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        sets = list(src)
         got[value] = (order, de.stats["batches"],
                       [[None if s is None else s.frame_id for s in ls]
-                       for ls in src])
+                       for ls in sets], sets)
         print(f"open_source, two sensors, {env}={value}: {len(order)} scans "
               f"in {secs:.3f} s, {de.stats['batches']} engine batches "
               f"[{CARD}]")
     os.environ.pop(env)
-    (dev_order, dev_batches, dev_sets), (ref_order, ref_batches,
-                                         ref_sets) = got["1"], got["0"]
+    dev_order, dev_batches, dev_sets, sets = got["1"]
+    ref_order, ref_batches, ref_sets, _ = got["0"]
     seq = [i for i, _ in ref_order]
     check(dev_batches > 0 and ref_batches == 0,
           f"two sensors: engine batches {dev_batches} / {ref_batches}")
@@ -1939,6 +1978,360 @@ def _run_sources(torch, port, tmp, info, oracle) -> None:
     print(f"open_source, two sensors on ports 7502 and 7512: yield order "
           f"{seq}, {n} elements differ between the engine and the numpy "
           f"batcher, collated sets equal")
+    return infos, sets
+
+
+# -- the OSF path -------------------------------------------------------------
+
+OSF_EXTRINSIC = np.array(
+    [[0.0, -1.0, 0.0, 500.0], [1.0, 0.0, 0.0, -250.0],
+     [0.0, 0.0, 1.0, 1500.0], [0.0, 0.0, 0.0, 1.0]])
+RETURNS = ("RANGE", "RANGE2")
+
+
+def write_osf(path: str, infos, items, collated: bool = False) -> float:
+    """Write with the port's OSF Writer (PNG, the default): `items` are one
+    sensor's scans, or LidarScanSets with `collated`. Returns the seconds
+    the writer took, its close included."""
+    from ouster_sdk_tpu_torch.io.osf import Writer
+
+    t0 = time.perf_counter()
+    with Writer(path) as writer:
+        for info in infos:
+            writer.add_sensor(info)
+        for item in items:
+            if collated:
+                writer.save_set(item)
+            else:
+                writer.save(0, item)
+    return time.perf_counter() - t0
+
+
+def hold_osf_xyz(torch, port, pk, dev, info, scans, f64_every: int = 4):
+    """Every XYZ cache the replay attached to `scans` (both returns; the
+    sensor frame and, where the extrinsic is not the identity, the
+    extrinsics frame) against the plain _proj_lean on the same ranges on
+    `dev`, bit for bit, and every `f64_every`-th scan against the f64 LUT.
+    Returns (differing elements, worst f32 ulp from f64, images held)."""
+    ident = np.allclose(info.extrinsic, np.eye(4))
+    variants = (False,) if ident else (False, True)
+    luts = {v: port.PlanarLut(port.make_xyz_lut(info, v), dev).stack
+            for v in variants}
+    n_diff, worst, n_img = 0, 0.0, 0
+    for k, ls in enumerate(scans):
+        for ret, name in enumerate(RETURNS):
+            rng = ls.field(name)
+            r_dev = torch.from_numpy(rng.astype(np.int64)).to(dev)[None]
+            for v in variants:
+                xyz = ls.cached_xyz(ret, v, rng)
+                check(xyz is not None and xyz.dtype == np.float32
+                      and xyz.shape == (info.h, info.w, 3),
+                      f"scan {k}: no XYZ cache for return {ret + 1}, "
+                      f"extrinsics frame {v}")
+                check(not ident or ls.cached_xyz(ret, True, rng) is xyz,
+                      f"scan {k}: the extrinsics frame is not served")
+                check(np.isfinite(xyz).all() and (xyz[rng == 0] == 0).all(),
+                      f"scan {k}: XYZ not finite, or not 0 at zero range")
+                plain = pk._proj_lean(r_dev, luts[v], precision="dd")[0]
+                plain = plain.movedim(0, -1).contiguous().cpu().numpy()
+                n_diff += int((xyz.view(np.int32)
+                               != plain.view(np.int32)).sum())
+                n_img += 1
+                if k % f64_every == 0:
+                    worst = max(worst, ulp_check(
+                        np.moveaxis(xyz, -1, 0)[None],
+                        f64_reference(port.make_xyz_lut(info, v),
+                                      rng.astype(np.int64)[None])))
+    return n_diff, worst, n_img
+
+
+def osf_window_split(torch, pk, dev, lut_stack, scans) -> dict:
+    """OsfDeviceProjector.attach on one window of `scans`, step by step
+    with the same calls, warm, ms (best of 5; the kernel by CUDA events):
+    gather the range images, copy in, the kernel, copy back, attach the
+    caches (both frames' keys, as for an identity extrinsic)."""
+    items = [(ls, ret, np.asarray(ls.field(name), np.uint32))
+             for ls in scans for ret, name in enumerate(RETURNS)]
+
+    def timed(fn):
+        best, out = float("inf"), None
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return best * 1e3, out
+
+    def attach():
+        for k, (ls, ret, r) in enumerate(items):
+            xyz = np.moveaxis(out[k], 0, -1)
+            ls.attach_xyz_cache(ret, False, xyz, r)
+            ls.attach_xyz_cache(ret, True, xyz, r)
+
+    split = {}
+    split["gather"], rngs = timed(
+        lambda: np.stack([r for _, _, r in items]))
+    split["copy in"], rngs_d = timed(lambda: pk.words_tensor(rngs, dev))
+    split["kernel"] = cuda_ms(lambda: pk.project_ranges(rngs_d, lut_stack),
+                              iters=20, windows=5, warm=2)[0]
+    out_d = pk.project_ranges(rngs_d, lut_stack)
+    split["copy back"], out = timed(lambda: out_d.cpu().numpy())
+    split["attach"], _ = timed(attach)
+    return split
+
+
+def _run_osf(torch, port, pk, dev, tmp, info, oracle, two_sensor) -> int:
+    """The OSF path: the engine capture's scans (`oracle`), the same scans
+    under a sensor with an extrinsic, and the scan-source path's collated
+    two-sensor sets (`two_sensor`: infos, sets) written with the port's
+    Writer, then read back through open_source -> OsfScanSource -> host
+    PNG decode -> OsfDeviceProjector (planar_project) -> XYZ caches, each
+    scan held equal to what was written and each cache bit-equal to the
+    plain _proj_lean on the card. Returns the launches of
+    planar_project<planar> on this path."""
+    import copy
+
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.io import osf as osf_mod
+    from ouster_sdk_tpu_torch.utils import native
+    from ouster_sdk_tpu_torch.utils import png as png_mod
+
+    env = "OUSTER_SDK_TPU_DEVICE_DECODE"
+    os.environ.pop(env, None)     # unset: the projector, on CUDA
+    scans = [s for _, s in oracle]
+    n, windows = len(scans), -(-len(scans) // 4)
+    channels = len(list(scans[0].fields))
+    info_ext = copy.deepcopy(info)
+    info_ext.extrinsic = OSF_EXTRINSIC.copy()
+    two_infos, two_sets = two_sensor
+    files = {
+        "main": (os.path.join(tmp, "engine.osf"), [info], scans, False),
+        "extrinsic": (os.path.join(tmp, "extrinsic.osf"), [info_ext],
+                      scans, False),
+        "two sensors": (os.path.join(tmp, "two_sensors.osf"), two_infos,
+                        two_sets, True)}
+
+    # 1. the files, written by the port's Writer
+    for name, (path, infos, items, collated) in files.items():
+        secs = write_osf(path, infos, items, collated)
+        k = sum(len(ls.valid()) for ls in items) if collated else len(items)
+        print(f"OSF write, {name} file: {k} scans of {info.h}x{info.w} dual "
+              f"in {secs:.2f} s = {secs / k * 1e3:.1f} ms/scan, "
+              f"{os.path.getsize(path) / k / 1e6:.2f} MB/scan (PNG) [{CARD}]")
+
+    def replay(path):
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        native.reset_calls()
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        src = port.open_source(path)
+        sets = list(src)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(src._projector() is not None
+              and src._projector().device.type == "cuda",
+              "the OSF replay's projector is not on cuda")
+        return src, sets, secs
+
+    # 2. replay of the single-sensor files, cold, counts from zero
+    launches = 0
+    for name, variants in (("main", 1), ("extrinsic", 2)):
+        path, (sinfo,), _, _ = files[name]
+        src, sets, secs = replay(path)
+        got = [ls[0] for ls in sets]
+        check(len(got) == n and all(len(ls) == 1 for ls in sets),
+              f"{name}: {len(got)} sets read back of {n}")
+        check(pk.launches["planar"] == windows * variants
+              and sum(pk.launches.values()) == windows * variants
+              and de.stats["osf_batches"] == windows,
+              f"{name}: launches {dict(pk.launches)}, stats {de.stats}, "
+              f"expected {windows} windows x {variants} frames")
+        check(native.calls["png_unfilter"] == n * channels,
+              f"{name}: {native.calls['png_unfilter']} native PNG unfilter "
+              f"calls, expected {n * channels}")
+        launches += windows * variants
+        d = sum(scans_differ(a, b) for a, b in zip(got, scans))
+        check(d == 0, f"{name}: {d} elements differ from the scans written")
+        n_diff, worst, n_img = hold_osf_xyz(torch, port, pk, dev, sinfo, got)
+        check(n_diff == 0 and worst <= 1.0,
+              f"{name}: XYZ caches differ from _proj_lean in {n_diff} "
+              f"elements, {worst} f32 ulp from f64")
+        print(f"OSF replay, {name} file, open_source cold: {n} scans in "
+              f"{secs:.3f} s = {n / secs:.2f} frames/s; {d} elements differ "
+              f"from the scans written; {pk.launches['planar']} launches of "
+              f"planar_project<planar> ({windows} windows x {variants} "
+              f"frames); {native.calls['png_unfilter']} native PNG unfilter "
+              f"calls; XYZ caches ({n_img} images) {n_diff} elements from "
+              f"the plain _proj_lean on the card, within {worst:.3f} f32 ulp "
+              f"of the f64 LUT [{CARD}]")
+        if name == "main":
+            FPS["osf"] = n / secs
+            main_src, main_got = src, got
+
+    # random access equals the iteration, one window a lookup
+    picks = [int(i) for i in np.random.default_rng(5).choice(n, 5, False)]
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    for i in picks:
+        s, want = main_src[i][0], main_got[i]
+        check(scans_differ(s, want) == 0 and np.array_equal(
+            s.cached_xyz(0, False, s.field("RANGE")).view(np.int32),
+            want.cached_xyz(0, False, want.field("RANGE")).view(np.int32)),
+            f"OSF src[{i}] differs from the iteration")
+    lookup_s = (time.perf_counter() - t0) / len(picks)
+    check(pk.launches["planar"] == len(picks),
+          f"lookups launched {pk.launches['planar']}")
+    launches += len(picks)
+    print(f"OSF src[i] for i in {picks}: equal to the iteration, caches "
+          f"included; {lookup_s * 1e3:.1f} ms a lookup [{CARD}]")
+
+    # XYZLut serves the cache, and recomputes once RANGE changes
+    lut = port.XYZLut(info)
+    t0 = time.perf_counter()
+    hits = sum(int(np.array_equal(lut(ls), ls.cached_xyz(
+        0, False, ls.field("RANGE")).astype(np.float64))) for ls in main_got)
+    hit_s = (time.perf_counter() - t0) / n
+    check(hits == n, f"XYZLut served {hits} of {n} caches")
+    ls = main_got[3]
+    rng = ls.field("RANGE")
+    cache = ls.cached_xyz(0, False, rng)
+    rng[7, 9] ^= 1
+    t0 = time.perf_counter()
+    served = lut(ls)
+    miss_s = time.perf_counter() - t0
+    check(np.array_equal(served, port.make_xyz_lut(info)(rng))
+          and not np.array_equal(served, cache.astype(np.float64)),
+          "XYZLut served a cache for a mutated RANGE")
+    rng[7, 9] ^= 1
+    check(np.array_equal(lut(ls), cache.astype(np.float64)),
+          "XYZLut lost the cache")
+    print(f"XYZLut(info)(scan): {hits} of {n} scans served from the cache "
+          f"({hit_s * 1e3:.2f} ms a scan); a mutated RANGE recomputed in f64 "
+          f"({miss_s * 1e3:.2f} ms) [{CARD}]")
+
+    # 3. the collated two-sensor file: the sets as written
+    path = files["two sensors"][0]
+    src, sets, secs = replay(path)
+    check(src.is_collated() and len(sets) == len(two_sets),
+          f"two sensors: {len(sets)} sets of {len(two_sets)}, collated "
+          f"{src.is_collated()}")
+    d, present = 0, 0
+    for got_set, want_set in zip(sets, two_sets):
+        check([s is None for s in got_set] == [s is None for s in want_set],
+              "two sensors: a set's slots differ")
+        for a, b in zip(got_set, want_set):
+            if a is not None:
+                d += scans_differ(a, b)
+                present += 1
+    check(d == 0 and pk.launches["planar"] == present
+          and de.stats["osf_batches"] == present,
+          f"two sensors: {d} elements differ; launches {dict(pk.launches)}"
+          f", stats {de.stats}, expected {present} launches")
+    launches += present
+    n_diff = n_img = 0
+    worst = 0.0
+    for si, sinfo in enumerate(two_infos):
+        mine = [ls[si] for ls in sets if ls[si] is not None]
+        nd, wst, ni = hold_osf_xyz(torch, port, pk, dev, sinfo, mine, 2)
+        n_diff, worst, n_img = n_diff + nd, max(worst, wst), n_img + ni
+    check(n_diff == 0 and worst <= 1.0,
+          f"two sensors: XYZ caches {n_diff} elements from _proj_lean, "
+          f"{worst} ulp from f64")
+    print(f"OSF replay, collated two-sensor file: {len(sets)} sets "
+          f"({present} scans) as written, {d} elements differ; {present} "
+          f"launches (one a sensor and set); XYZ caches ({n_img} images) "
+          f"{n_diff} elements from _proj_lean, within {worst:.3f} f32 ulp "
+          f"of f64; {secs:.3f} s [{CARD}]")
+
+    # 4. where the read time goes: the main file once more, warm
+    path = files["main"][0]
+    pk.reset_launches()
+    with count_calls(osf_mod, "decode_lidar_scan_msg") as decode, \
+            count_calls(png_mod.zlib, "decompress") as inflate, \
+            count_calls(png_mod, "_unfilter") as unfilter, \
+            count_calls(osf_mod, "_stagger") as stagger, \
+            count_calls(de.OsfDeviceProjector, "attach") as attach:
+        t0 = time.perf_counter()
+        src = port.open_source(path)
+        open_s = time.perf_counter() - t0
+        k = sum(1 for _ in src)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+    check(k == n and inflate.n == unfilter.n == stagger.n == n * channels
+          and attach.n == windows and pk.launches["planar"] == windows,
+          f"read split: {k} sets, {inflate.n} inflates, {unfilter.n} "
+          f"unfilters, {stagger.n} staggers, {attach.n} windows")
+    launches += windows
+    rest = decode.seconds - inflate.seconds - unfilter.seconds \
+        - stagger.seconds
+    other = total_s - open_s - decode.seconds - attach.seconds
+    per = {"open (mmap, chunk CRC, message index)": open_s,
+           "decode: inflate (zlib)": inflate.seconds,
+           "decode: PNG unfilter (native)": unfilter.seconds,
+           "decode: stagger": stagger.seconds,
+           "decode: flatbuffer, PNG chunks, LidarScan": rest,
+           "projector windows (attach)": attach.seconds,
+           "the rest (source iteration, sets)": other}
+    for name, secs in per.items():
+        print(f"OSF read stage {name}: {secs / n * 1e3:.3f} ms/scan "
+              f"({secs / total_s * 100:.1f} %)")
+    host = decode.seconds + open_s
+    print(f"OSF read, warm: {total_s / n * 1e3:.2f} ms/scan = "
+          f"{n / total_s:.2f} frames/s; host decode {host / n * 1e3:.2f} "
+          f"ms/scan, of which stagger "
+          f"{stagger.seconds / max(host, 1e-9) * 100:.1f} %, inflate "
+          f"{inflate.seconds / max(host, 1e-9) * 100:.1f} % [{CARD}]")
+
+    # the projector's window, step by step, on the first window
+    real = sorted(attach.times[1:]) or attach.times
+    split = osf_window_split(torch, pk, dev, port.PlanarLut(
+        port.make_xyz_lut(info), dev).stack, main_got[:4])
+    print(f"OSF projector window (4 dual scans, 8 range images): "
+          f"attach {real[len(real) // 2] * 1e3:.2f} ms (median of "
+          f"{len(real)}; the first, with the LUT built, "
+          f"{attach.times[0] * 1e3:.2f} ms); its steps, best of 5: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f" (kernel by CUDA events) [{CARD}]")
+    # the same call on windows of the scans written (the ScanBatcher's) and
+    # of the scans read back, in turns, warm (the LUT built before): does a
+    # window's time follow the scans it is given?
+    proj = de.OsfDeviceProjector([info], batch=4)
+    proj.attach([(0, s) for s in main_got[:4]])
+    times = {"read back": [], "written": []}
+    for base in (4, 8, 12, 16):
+        for name, group in (("read back", main_got), ("written", scans)):
+            t0 = time.perf_counter()
+            proj.attach([(0, s) for s in group[base:base + 4]])
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    print("OSF projector window, warm, in turns, ms: " + "; ".join(
+        f"on the scans {name} {', '.join(f'{v:.2f}' for v in vals)}"
+        for name, vals in times.items()) + f" [{CARD}]")
+
+    # 5. replay frames/s in turns: OSF with the projector, OSF with the
+    # policy off (no XYZ), the same scans from the pcap through the engine
+    pcap = os.path.join(tmp, "engine.pcap")
+    runs = (("OSF, projector", "1", lambda: port.open_source(path)),
+            ("OSF, policy off (no XYZ)", "0", lambda: port.open_source(path)),
+            ("pcap, engine", "1", lambda: port.open_source(
+                pcap, sensor_info=[info])))
+    turns = {name: [] for name, _, _ in runs}
+    pk.reset_launches()
+    for _ in range(3):
+        for name, value, make in runs:
+            os.environ[env] = value
+            t0 = time.perf_counter()
+            k = sum(1 for _ in make())
+            torch.cuda.synchronize()
+            turns[name].append(k / (time.perf_counter() - t0))
+    os.environ.pop(env)
+    check(pk.launches["planar"] == 3 * windows,
+          f"turns: {pk.launches['planar']} launches")
+    launches += 3 * windows
+    print("OSF replay in turns, frames/s: " + "; ".join(
+        f"{name} {', '.join(f'{v:.2f}' for v in vals)}"
+        for name, vals in turns.items()) + f" [{CARD}]")
+    return launches
 
 
 if __name__ == "__main__":

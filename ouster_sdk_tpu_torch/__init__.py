@@ -42,11 +42,24 @@ on the numpy ScanBatcher when OUSTER_SDK_TPU_DEVICE_DECODE=0; the host
 staging under every path runs in the native library (utils.native, the
 port's own C++ copy, built with g++ at first use).
 
+OSF replay and recording: `open_source("x.osf")` gives an OsfScanSource
+(io.osf) that reads the file through an mmap, decodes each scan's PNG or
+zPNG fields on the host (scanlines unfiltered by the native library,
+stagger by a cached index map), and projects RANGE and RANGE2 to
+double-single XYZ on the device in windows (OsfDeviceProjector, the planar
+kernel); each scan carries that XYZ as a cache, which XYZLut(info)(scan)
+serves while the scan's RANGE is unchanged. io.osf.Writer writes OSF files
+byte-identical to the JAX package's.
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
 
 from __future__ import annotations
+
+import os
+
+import numpy as np
 
 from .core.batcher import ScanBatcher
 from .core.constants import ChanField
@@ -62,9 +75,10 @@ from .core.types import (DataFormat, HeaderType, LidarMode, SensorInfo,
                          UDPProfileIMU, UDPProfileLidar)
 from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
                                LiveDeviceBatcher, OsfDeviceProjector,
-                               supports_device_decode,
+                               make_osf_projector, supports_device_decode,
                                supports_osf_device_projection)
 from .io.frames import FrameReader, PlanarBatch
+from .io.osf import OsfScanSource
 from .io.pcap import PcapReader, PcapWriter
 from .io.pcap_scan_source import PcapScanSource
 from .io.pcap_source import PcapPacketSource
@@ -74,7 +88,7 @@ from .io.sources import (Collator, IoType, LidarScanSet, MultiScanSource,
                          extension_from_io_type, io_type,
                          io_type_from_extension, open_packet_source,
                          open_source, populate_extrinsics)
-from .ops.destagger import destagger, destagger_torch
+from .ops.destagger import destagger, destagger_torch, stagger
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
 from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
                                   unpack_project_lutfree,
@@ -93,10 +107,61 @@ from .ops.pose import (dewarp, dewarp_np, exp_pose, interp_pose,
 from .ops.unpack import (decode_frame, decode_frame_batch,
                          decode_frame_planar, decode_frame_planar_batch,
                          frame_words_from_packets, make_decode_plan)
-from .ops.xyzlut import (XYZLut, XYZLutDevice, XYZLutFloat, cartesian,
-                         cartesian_dd, cartesian_f32, make_xyz_lut,
-                         make_xyz_lut_float, to_device_lut)
+from .ops.xyzlut import (XYZLutDevice, cartesian, cartesian_dd,
+                         cartesian_f32, make_xyz_lut, make_xyz_lut_float,
+                         to_device_lut)
 from .state import lidar_scan_from_jax, lidar_scan_from_numpy
+
+
+def XYZLutFactory(info, use_extrinsics: bool = False):
+    """Reference-compatible LUT constructor returning a callable that maps a
+    scan or range image to (H, W, 3) points (ref: sdk/core/data.py:129
+    XYZLut).
+
+    Scans produced by OSF replay carry a device-projected XYZ cache
+    (double-single, <= 0.5 f32 ulp of this host f64 path); when a SCAN is
+    passed and its range content is unchanged since projection, the cache
+    is served instead of re-projecting on the host.
+    OUSTER_SDK_TPU_DEVICE_XYZ=0 disables serving (always recompute in
+    f64)."""
+    lut = make_xyz_lut(info, use_extrinsics)
+
+    def project(scan_or_range):
+        if hasattr(scan_or_range, "field"):
+            rng = scan_or_range.field(ChanField.RANGE)
+            if hasattr(scan_or_range, "cached_xyz") and \
+                    os.environ.get("OUSTER_SDK_TPU_DEVICE_XYZ") != "0":
+                hit = scan_or_range.cached_xyz(0, use_extrinsics, rng)
+                if hit is not None:
+                    return hit.astype(np.float64)
+        else:
+            rng = np.asarray(scan_or_range)
+        return lut(rng)
+
+    return project
+
+
+def XYZLutFloatFactory(info, use_extrinsics: bool = False):
+    """Single-precision variant of XYZLutFactory
+    (ref: sdk/core/data.py:176 XYZLutFloat)."""
+    lut = make_xyz_lut_float(info, use_extrinsics)
+
+    def project(scan_or_range):
+        if hasattr(scan_or_range, "field"):
+            rng = scan_or_range.field(ChanField.RANGE)
+        else:
+            rng = np.asarray(scan_or_range)
+        return lut(rng)
+
+    return project
+
+
+# The reference's ouster.sdk.core exports the data.py factory functions
+# under the names XYZLut / XYZLutFloat (shadowing the C++ LUT classes), and
+# so does the JAX package; the LUT dataclasses stay importable from
+# ops.xyzlut.
+XYZLut = XYZLutFactory
+XYZLutFloat = XYZLutFloatFactory
 
 
 __all__ = [
@@ -114,19 +179,20 @@ __all__ = [
     "lidar_scan_from_numpy", "LidarMode", "LidarPacket", "LidarScan",
     "LidarScanSet", "LiveDeviceBatcher", "log_pose",
     "logging_error_handler", "lut_planes", "lutfree_supported",
-    "make_decode_plan", "make_xyz_lut", "make_xyz_lut_float",
-    "MultiScanSource", "open_packet_source", "open_source",
-    "OsfDeviceProjector", "OusterIoType", "Packet", "PacketFormat",
-    "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
+    "make_decode_plan", "make_osf_projector", "make_xyz_lut",
+    "make_xyz_lut_float", "MultiScanSource", "open_packet_source",
+    "open_source", "OsfDeviceProjector", "OsfScanSource", "OusterIoType",
+    "Packet", "PacketFormat", "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
     "PcapScanSource", "PcapWriter", "PipelineConfig", "PlanarBatch",
     "PlanarLut", "populate_extrinsics", "project_ranges", "reset_launches",
     "resolve_field_types", "ScanBatcher", "ScanPipeline", "ScanSource",
     "sensor_info_from_metadata", "SensorInfo", "Severity", "Singler",
-    "Slicer", "SourceURLException", "supports_device_decode",
+    "Slicer", "SourceURLException", "stagger", "supports_device_decode",
     "supports_osf_device_projection", "to_device_lut", "transform",
     "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unpack_project",
     "unpack_project_lutfree", "unpack_project_lutfree_dd",
     "unpack_project_lutfree_planar", "unpack_project_packet",
     "unpack_project_packet_batched", "unpack_project_planar_batched",
-    "words_tensor", "XYZLut", "XYZLutDevice", "XYZLutFloat", "ZonePacket",
+    "words_tensor", "XYZLut", "XYZLutDevice", "XYZLutFactory",
+    "XYZLutFloat", "XYZLutFloatFactory", "ZonePacket",
 ]

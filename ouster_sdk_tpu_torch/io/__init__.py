@@ -1,6 +1,6 @@
 """IO namespace: pcap reading and writing, the pcap packet and scan
-sources, the scan-source layer with open_source, the frame staging and the
-device engine."""
+sources, OSF reading, writing and file operations, the scan-source layer
+with open_source, the frame staging and the device engine."""
 
 from .pcap import (  # noqa: F401
     PacketInfo,
@@ -21,6 +21,28 @@ from .pcap_source import (  # noqa: F401
     resolve_metadata_paths,
 )
 from .pcap_scan_source import PcapScanSource  # noqa: F401
+from .osf import (  # noqa: F401
+    AsyncWriter,
+    MessageRef,
+    MetadataEntry,
+    Encoder,
+    LidarScanEncoder,
+    OsfScanSource,
+    PngLidarScanEncoder,
+    Reader,
+    Writer,
+    ZPngLidarScanEncoder,
+)
+from .osf_ops import (  # noqa: F401
+    backup_osf_file_metablob,
+    dump_metadata,
+    osf_file_modify_metadata,
+    osf_info,
+    osf_slice,
+    parse_and_print,
+    restore_osf_file_metablob,
+    slice_and_cast,
+)
 from .sources import (  # noqa: F401
     Collator,
     IoType,

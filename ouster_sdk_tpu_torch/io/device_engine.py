@@ -1092,3 +1092,17 @@ class OsfDeviceProjector:
         if window:
             self.attach(window)
             yield from window
+
+
+def make_osf_projector(infos: List[SensorInfo], field_names, device=None
+                       ) -> Optional[OsfDeviceProjector]:
+    """The OSF replay's projector on `device`, or None where the policy
+    (device_decode_enabled) is off or no sensor is eligible: then scans
+    carry no XYZ cache and XYZLut projects on the host. With the policy on,
+    `device=None` is CUDA and raises without a GPU."""
+    if not device_decode_enabled():
+        return None
+    if not any(supports_osf_device_projection(i, field_names)
+               for i in infos):
+        return None
+    return OsfDeviceProjector(infos, device=device)

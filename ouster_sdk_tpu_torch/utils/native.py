@@ -3,7 +3,8 @@
 The library is the host staging of every path: one pass over a capture
 with IPv4 reassembly (pcap_scan), packets grouped into packet-layout frame
 slots (group_frames) or into word planes with the scan headers
-(group_frames_planar), and the packet footer's CRC64. It is built with g++
+(group_frames_planar), the packet footer's CRC64, and the PNG scanline
+unfilter of the OSF field codec (utils/png.py). It is built with g++
 at first use into kernels/_build/ (git-ignored), keyed by a hash of the
 source and of the machine (-march=native binaries are machine-specific), and
 written to a temporary file that is renamed into place, so that several
@@ -15,10 +16,9 @@ or load that starts and fails raises with the compiler's output. Every
 wrapper checks the dtype, shape and C-contiguity of each array it hands to
 C before the call, and counts its calls in `calls`.
 
-The library also exports onat_png_unfilter, onat_udp_recv_batch,
-onat_group_frames_packed, onat_bp64_encode, onat_stage_frame and
-onat_crc64_check_batch; they are bound with their signatures and have no
-wrapper yet.
+The library also exports onat_udp_recv_batch, onat_group_frames_packed,
+onat_bp64_encode, onat_stage_frame and onat_crc64_check_batch; they are
+bound with their signatures and have no wrapper yet.
 """
 
 from __future__ import annotations
@@ -44,7 +44,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 #: calls into the library, by wrapper (reset with reset_calls)
 calls: Dict[str, int] = {"crc64": 0, "pcap_scan": 0, "group_frames": 0,
-                         "group_frames_planar": 0}
+                         "group_frames_planar": 0, "png_unfilter": 0}
 #: seconds the build took in this process (None: loaded from disk, or not
 #: loaded yet)
 build_seconds: Optional[float] = None
@@ -217,6 +217,25 @@ def crc64(data) -> Optional[int]:
            else np.frombuffer(data, dtype=np.uint8))
     calls["crc64"] += 1
     return int(lib.onat_crc64(_ptr(buf), buf.size))
+
+
+def png_unfilter(rows: np.ndarray, h: int, stride: int, bpp: int
+                 ) -> Optional[np.ndarray]:
+    """PNG scanline unfiltering (filters None, Sub, Up, Average, Paeth) of
+    `rows`, (h, stride + 1) u8 with each row's filter byte first: the
+    (h, stride) reconstructed bytes, or None without the library. A filter
+    byte above 4 raises."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    rows = _arr(rows, "rows", np.uint8, (h, stride + 1))
+    if h and not 1 <= bpp <= stride:
+        raise ValueError(f"bpp {bpp} outside 1..stride ({stride})")
+    out = np.empty((h, stride), dtype=np.uint8)
+    calls["png_unfilter"] += 1
+    if lib.onat_png_unfilter(_ptr(out), _ptr(rows), h, stride, bpp) != 0:
+        raise ValueError("bad PNG filter byte")
+    return out
 
 
 def pcap_scan(data: np.ndarray, swap_endian: bool, ts_nano: bool,

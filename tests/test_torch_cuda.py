@@ -16,7 +16,10 @@ the planar LUT-free kernel against the packet-layout one. The device engine
 at a small size: the iterator's and the live batcher's scans equal the
 port's ScanBatcher's (0 differing elements), a live scan is copied back
 only when a field is touched, and the projector's XYZ comes from the
-planar kernel, bit-exact against `_proj_lean`."""
+planar kernel, bit-exact against `_proj_lean`. OSF replay: a file the
+port's Writer made, read back through open_source, gives the scans
+written, with XYZ caches from the planar kernel (one launch a window and
+frame), bit-exact against `_proj_lean`, that XYZLut serves."""
 
 import numpy as np
 import pytest
@@ -754,3 +757,35 @@ def test_projector_on_the_card_goes_through_the_kernel(cuda, tmp_path):
     rng = scans[0].field("RANGE")
     rng[0, 0] += 1
     assert scans[0].cached_xyz(0, False, rng) is None
+
+
+@pytest.mark.cuda
+def test_osf_replay_projects_through_the_kernel(cuda, tmp_path):
+    import copy
+
+    from ouster_sdk_tpu_torch.io import device_engine as de
+
+    cs, info, _, _, oracle = _engine_capture(tmp_path, n=3)
+    scans = [s for _, s in oracle]
+    info_ext = copy.deepcopy(info)
+    info_ext.extrinsic = cs.OSF_EXTRINSIC.copy()
+    for sinfo, frames in ((info, 1), (info_ext, 2)):
+        path = str(tmp_path / f"x{frames}.osf")
+        cs.write_osf(path, [sinfo], scans)
+        de.stats.update(batches=0, osf_batches=0)
+        pk.reset_launches()
+        src = pt.open_source(path)
+        got = [ls[0] for ls in src]
+        assert src._projector().device.type == "cuda"
+        # 6 scans: windows of 4 and 2, one launch a window and frame
+        assert de.stats["osf_batches"] == 2
+        assert pk.launches["planar"] == 2 * frames
+        assert sum(pk.launches.values()) == pk.launches["planar"]
+        assert all(cs.scans_differ(a, b) == 0 for a, b in zip(got, scans))
+        n_diff, worst, n_img = cs.hold_osf_xyz(torch, pt, pk, cuda, sinfo,
+                                               got, f64_every=2)
+        assert n_diff == 0 and worst <= 1.0 and n_img == 6 * 2 * frames
+        lut = pt.XYZLut(sinfo)
+        for ls in got:
+            cache = ls.cached_xyz(0, False, ls.field("RANGE"))
+            assert np.array_equal(lut(ls), cache.astype(np.float64))

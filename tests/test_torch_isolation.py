@@ -194,6 +194,58 @@ def test_sources_run_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_osf_runs_with_jax_unimportable():
+    """OSF recording and replay (PNG and zPNG, the projector on the CPU
+    and the policy off) and the file operations, with jax and the JAX
+    package unimportable."""
+    code = textwrap.dedent(f"""
+        import os, sys, tempfile
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import torch
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        from ouster_sdk_tpu_torch.io import osf, osf_ops
+        from ouster_sdk_tpu_torch.ops import planar_kernels as pk
+        info = cs.synth_info(cs.MAIN_PROFILE, w=128, h=16)
+        tmp = tempfile.mkdtemp()
+        cap = os.path.join(tmp, "m.pcap")
+        cs.synth_capture(cap, info, 3)
+        scans = [s for _, s in cs.batcher_scans(
+            pt, info, cs.capture_packets(pt, info, cap))]
+        path = os.path.join(tmp, "x.osf")
+        cs.write_osf(path, [info], scans)
+        for env in ("1", "0"):
+            os.environ["OUSTER_SDK_TPU_DEVICE_DECODE"] = env
+            got = [ls[0] for ls in pt.open_source(path, device="cpu")]
+            assert all(cs.scans_differ(a, b) == 0 for a, b in zip(got,
+                                                                  scans))
+            if env == "1":
+                n_diff, worst, n_img = cs.hold_osf_xyz(
+                    torch, pt, pk, torch.device("cpu"), info, got)
+                assert n_diff == 0 and worst <= 1.0 and n_img == 6
+            else:
+                assert got[0].cached_xyz(0, False,
+                                         got[0].field("RANGE")) is None
+        z = os.path.join(tmp, "z.osf")
+        with osf.Writer(z, encoder="zpng") as w:
+            w.add_sensor(info)
+            for s in scans:
+                w.save(0, s)
+        back = [m.decode() for m in osf.Reader(z).messages()]
+        assert all(cs.scans_differ(a, b) == 0 for a, b in zip(back, scans))
+        assert osf_ops.osf_info(z)["scan_messages"] == {{2: 3}}
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     _, pinfo = infos(DUAL)
     if torch.cuda.is_available():

@@ -252,9 +252,10 @@ def test_open_source_unsupported_extension(tmp_path):
 
 
 def test_open_source_only_pcap_is_registered(tmp_path):
-    """Every other IoType is recognized and refused with the JAX package's
-    own text until its backend is ported."""
-    for ext, name in ((".osf", "OSF"), (".bag", "BAG"), (".ply", "PLY")):
+    """PCAP and OSF are the registered scan sources; every other IoType is
+    recognized and refused with the JAX package's own text until its
+    backend is ported, and OSF has no packet source, as there."""
+    for ext, name in ((".bag", "BAG"), (".ply", "PLY")):
         p = tmp_path / f"x{ext}"
         p.write_bytes(b"\0" * 32)
         with pytest.raises(pt.SourceURLException) as got:
@@ -265,6 +266,17 @@ def test_open_source_only_pcap_is_registered(tmp_path):
         with pytest.raises(pt.SourceURLException,
                            match="Could not open packet source"):
             pt.open_packet_source(str(p))
+    p = tmp_path / "x.osf"
+    p.write_bytes(b"\0" * 32)
+    with pytest.raises(pt.SourceURLException) as got:
+        pt.open_source(str(p))
+    with pytest.raises(jsources.SourceURLException) as want:
+        jsources.open_source(str(p))
+    assert str(got.value) == str(want.value)
+    assert "invalid OSF file: bad header identifier" in str(got.value)
+    with pytest.raises(pt.SourceURLException,
+                       match="Could not open packet source"):
+        pt.open_packet_source(str(p))
 
 
 def test_open_source_options(tmp_path):
