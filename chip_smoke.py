@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels and the native host library (g++, the port's own
 C++ copy) from the sources in this checkout, synthesizes captures with the
-port's own packet and pcap writers, and drives the port's six paths
+port's own packet and pcap writers, and drives the port's seven paths
 through the entry points a user calls. Every path stages its packets
 through the native library: its call counts are read after each path and
 the run fails unless each path made a capture scan and grouper calls.
@@ -46,7 +46,20 @@ XYZLut(info)(scan) serving the cache and recomputing for a mutated RANGE;
 its write and read times, the read's split (open, inflate, unfilter,
 stagger, the rest of the decode, the projector) and the projector window's
 split (gather, copy in, kernel, copy back, attach) are printed, and its
-frames/s in turns with the policy off and with the pcap engine.
+frames/s in turns with the policy off and with the pcap engine. The live
+path: the port's SensorEmulator on loopback serves 40 frames of the main
+cell, paced at 1x, 2x and 4x real time, to open_source("127.0.0.1:<port>")
+-> SensorScanSource (each socket drained by one recvmmsg, a batcher thread
+pushing packets into a LiveDeviceBatcher on the card) -> LidarScans,
+every scan touched on the main thread and held equal (headers included) to
+the ScanBatcher over the packets received; the run fails unless every
+frame arrives whole with no drop at 1x. The device and numpy engines run
+in turns at 2x, two sensors (1024x10 dual, 2048x10 single) run through one
+source, collated, and the planar ingest (SensorPacketSource ->
+PlanarStreamAssembler -> decode_planar + project_planar -> destagger)
+launches planar_project once a released frame, held bit-equal to the plain
+version and within 1 f32 ulp of the f64 LUT; scans/s, drops, real time x,
+the effective SO_RCVBUF and the ingest's ms a frame are printed.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -90,6 +103,7 @@ from contextlib import nullcontext
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -826,6 +840,12 @@ def _run(torch, port, pk, dev, tmp) -> int:
     kernels[0]["launches"] += osf_launches
     print(f"planar_project<planar>: {osf_launches} more launches on the OSF "
           f"path; {kernels[0]['launches']} in all")
+    for case, n in _run_live(torch, port, pk, dev,
+                             captures[MAIN_PROFILE][0]).items():
+        entry = kernels[pk.CASES.index(case)]
+        entry["launches"] += n
+        print(f"planar_project<{case}>: {n} more launches on the live "
+              f"planar ingest; {entry['launches']} in all")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -1388,25 +1408,27 @@ def device_trace(torch, fn):
 
 
 class count_calls:
-    """Count the calls of `module.name` while the block runs, and the host
-    time spent in them: a witness of device->host copies that does not
-    depend on the profiler, and a split of a host-side step."""
+    """Count the calls of `module.name` while the block runs, the host time
+    spent in them and the CPU time of the calling thread spent in them
+    (`cpu`): a witness of device->host copies that does not depend on the
+    profiler, and a split of a host-side step."""
 
     def __init__(self, module, name: str):
         self.module, self.name, self.n, self.seconds = module, name, 0, 0.0
-        self.times = []
+        self.times, self.cpu = [], 0.0
 
     def __enter__(self):
         self.fn = getattr(self.module, self.name)
 
         def counted(*args, **kwargs):
             self.n += 1
-            t0 = time.perf_counter()
+            t0, c0 = time.perf_counter(), time.thread_time()
             try:
                 return self.fn(*args, **kwargs)
             finally:
                 self.times.append(time.perf_counter() - t0)
                 self.seconds += self.times[-1]
+                self.cpu += time.thread_time() - c0
 
         setattr(self.module, self.name, counted)
         return self
@@ -2332,6 +2354,446 @@ def _run_osf(torch, port, pk, dev, tmp, info, oracle, two_sensor) -> int:
         f"{name} {', '.join(f'{v:.2f}' for v in vals)}"
         for name, vals in turns.items()) + f" [{CARD}]")
     return launches
+
+
+
+# -- the live path -----------------------------------------------------------
+
+LIVE_FRAMES = 40       # a paced run of the scan path
+INGEST_FRAMES = 20     # a paced run of the planar ingest
+
+
+def free_udp_ports(n: int):
+    """n distinct free loopback UDP ports."""
+    import socket
+
+    socks = [socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+             for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+def live_sensor(profile: str, w: int, sn: int, n_frames: int, seed: int,
+                h: int = 128):
+    """A live sensor (synth_info with a serial and an init id) and its
+    frames 1..n_frames as lists of packet payloads (synth_packets)."""
+    info = synth_info(profile, w=w, h=h)
+    info.sn, info.init_id = sn, 7
+    n = w // info.format.columns_per_packet
+    pkts = [p for p, _ in synth_packets(info, range(1, n_frames + 1), seed)]
+    return info, [pkts[k * n:(k + 1) * n] for k in range(n_frames)]
+
+
+def paced(frames, period_ns: int = 100_000_000):
+    """A SensorEmulator packets factory: the frames in order, a frame a
+    period, its packets spread evenly over the period, as a sensor sends
+    them."""
+    def make():
+        for f, pkts in enumerate(frames):
+            for p, payload in enumerate(pkts):
+                yield f * period_ns + p * period_ns // len(pkts), "lidar", \
+                    payload
+    return make
+
+
+def record_lidar(packets) -> list:
+    """Wrap a SensorPacketSource's classifier: every lidar packet it
+    passes on is appended to the returned list as (sensor, payload,
+    host_ts), in arrival order: what the batcher thread was fed."""
+    seen = []
+    classify = packets._classify
+
+    def record(idx, data, ts):
+        pkt = classify(idx, data, ts)
+        if pkt is not None and pkt.type().value == "Lidar":
+            seen.append((idx, data, ts))
+        return pkt
+
+    packets._classify = record
+    return seen
+
+
+def recorded_oracle(port, info, seen, idx: int = 0) -> dict:
+    """{frame_id: scan} of the port's ScanBatcher over one sensor's
+    recorded packets, with their receive timestamps."""
+    batcher, cur, out = port.ScanBatcher(info), port.LidarScan(info), {}
+    for i, data, ts in seen:
+        if i == idx and batcher(port.LidarPacket(data, ts), cur):
+            out[cur.frame_id] = cur
+            cur = port.LidarScan(info)
+    return out
+
+
+def whole(scan) -> bool:
+    """Whether every packet of the scan's frame arrived."""
+    return int(np.count_nonzero(scan.packet_timestamp)) == \
+        scan.packet_timestamp.size
+
+
+def hold_live(port, infos, got, seen, what: str) -> int:
+    """Every received scan against the port's ScanBatcher over the same
+    received packets: 0 differing elements, headers included. Returns the
+    count of scans whose every packet arrived."""
+    oracles = [recorded_oracle(port, info, seen, k)
+               for k, info in enumerate(infos)]
+    n = n_whole = 0
+    for k, scan in got:
+        check(scan.frame_id in oracles[k],
+              f"{what}: sensor {k} frame {scan.frame_id} not released by "
+              f"the ScanBatcher")
+        n += scans_differ(scan, oracles[k][scan.frame_id])
+        n_whole += whole(scan)
+    check(n == 0, f"{what}: {n} elements differ from the ScanBatcher's scans")
+    return n_whole
+
+
+def thread_cpu_s(native_id: int) -> float:
+    """CPU seconds (user + system) one thread of this process has used,
+    from /proc (10 ms ticks)."""
+    with open(f"/proc/self/task/{native_id}/stat") as f:
+        fields = f.read().rsplit(")", 1)[1].split()
+    return (int(fields[11]) + int(fields[12])) / os.sysconf("SC_CLK_TCK")
+
+
+def live_run(port, infos, frames, rate: float, engine: str = "auto",
+             touch: bool = True, record: bool = True, device=None):
+    """Emulators for `infos` serving `frames` paced at `rate` x real time
+    -> one SensorScanSource (open_source for the auto engine, the class
+    with its engine option otherwise) on `device` (None: CUDA) ->
+    LidarScanSets on the main thread, every scan touched unless `touch` is
+    False (a field read: the deferred readback). Returns the
+    scans as (sensor, scan), their arrival times by sensor, the sets, the
+    source (closed; its first lidar socket's effective SO_RCVBUF in
+    `src.rcvbuf`; in `src.cpu` the CPU seconds a second of the run that
+    the consumer, the batcher thread and the emulators' senders used) and
+    the recorded packets."""
+    import socket
+
+    from ouster_sdk_tpu_torch.sensor import ClientTimeout, SensorScanSource
+    from ouster_sdk_tpu_torch.sensor.emulator import SensorEmulator
+
+    emus, hosts = [], []
+    for info, fr in zip(infos, frames):
+        lp, ip = free_udp_ports(2)
+        info.config.udp_port_lidar, info.config.udp_port_imu = lp, ip
+        emus.append(SensorEmulator(info, paced(fr), lidar_port=lp,
+                                   imu_port=ip, rate=rate))
+        hosts.append(f"127.0.0.1:{emus[-1].http_port}")
+    kw = dict(sensor_info=infos, timeout=1.0, queue_size=2 * len(infos),
+              device=device)
+    if engine == "auto" and len(infos) == 1:
+        src = port.open_source(hosts[0], **kw)
+    else:
+        src = SensorScanSource(hosts, engine=engine, **kw)
+    seen = record_lidar(src._packets) if record else []
+    src.rcvbuf = src._packets._clients[0].lidar_sock.getsockopt(
+        socket.SOL_SOCKET, socket.SO_RCVBUF)
+    got, times, sets = [], [[] for _ in infos], []
+    n_want = sum(len(fr) for fr in frames)
+    threads = {"consumer": threading.get_native_id(),
+               "batcher": src._thread.native_id}
+    done = threading.Event()
+    try:
+        for emu in emus:
+            emu.start()
+        threads.update({f"sender {k}": emu._send_thread.native_id
+                        for k, emu in enumerate(emus)})
+        cpu0 = {k: thread_cpu_s(t) for k, t in threads.items()}
+        last = dict(cpu0)
+
+        def sample():       # a sender's /proc entry goes when it ends
+            while not done.wait(0.05):
+                for k, t in threads.items():
+                    try:
+                        last[k] = thread_cpu_s(t)
+                    except OSError:
+                        pass
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        sampler.start()
+        t_start = time.perf_counter()
+        it = iter(src)
+        while len(got) < n_want:
+            try:
+                ls = next(it)
+            except ClientTimeout:
+                break           # the stream ended with scans missing
+            now = time.perf_counter()
+            for k, scan in enumerate(ls):
+                if scan is None:
+                    continue
+                if touch:
+                    scan.field("RANGE")
+                got.append((k, scan))
+                times[k].append(now)
+            sets.append(ls)
+        wall = time.perf_counter() - t_start
+        done.set()
+        sampler.join()
+        src.cpu = {k: (last[k] - cpu0[k]) / wall for k in threads}
+    finally:
+        done.set()
+        src.close()
+        for emu in emus:
+            emu.stop()
+    return got, times, sets, src, seen
+
+
+def live_rate(times, n_frames: int, rate: float, drops: int,
+              fps: float = 10.0):
+    """(scans/s between the first and the last scan, real time x): a
+    complete zero-drop stream at pace R proves >= R x real time, so the
+    figure is capped at the pace then (bench.py's rule)."""
+    sps = ((len(times) - 1) / (times[-1] - times[0])
+           if len(times) > 1 and times[-1] > times[0] else 0.0)
+    complete = len(times) >= n_frames and drops == 0
+    return sps, (min(sps / fps, rate) if complete else sps / fps)
+
+
+def _run_live(torch, port, pk, dev, main_info) -> dict:
+    """The live path: the port's SensorEmulator on loopback serving the
+    main cell (128x2048 dual, 10 Hz) -> open_source("127.0.0.1:<port>") ->
+    SensorScanSource (recvmmsg, batcher thread, LiveDeviceBatcher on the
+    card) -> LidarScans touched on the main thread, at 1x, 2x and 4x real
+    time; the device and numpy engines in turns at 2x; two sensors through
+    one source, collated; and the planar ingest (SensorPacketSource ->
+    PlanarStreamAssembler -> decode_planar + project_planar -> destagger)
+    of the main cell and of a single-return sensor. Returns the planar
+    kernel's launches on the ingest by case."""
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.utils import native
+
+    os.environ.pop("OUSTER_SDK_TPU_DEVICE_DECODE", None)
+    t0 = time.perf_counter()
+    info, frames = live_sensor(MAIN_PROFILE, 2048, 992240000040,
+                               LIVE_FRAMES, seed=21)
+    check(main_info.format.udp_profile_lidar == info.format.udp_profile_lidar,
+          "the live sensor is not the main cell's")
+    print(f"live: synthesized {LIVE_FRAMES} frames of 128x2048 "
+          f"{MAIN_PROFILE} ({sum(len(p) for p in frames[0]) / 1e6:.2f} MB "
+          f"a frame in {len(frames[0])} packets) in "
+          f"{time.perf_counter() - t0:.1f} s [{CARD}]")
+
+    # 1. the scan path, one sensor, at 1x, 2x, 4x real time; the batcher
+    # thread's CPU split into the receive (select, recvmmsg, a copy and
+    # the id check a packet) and the pushes (of which the flushes)
+    from ouster_sdk_tpu_torch.sensor import SensorPacketSource
+
+    for rate in (1.0, 2.0, 4.0):
+        native.reset_calls()
+        before = de.stats["batches"]
+        with count_calls(SensorPacketSource, "_poll_once") as recv, \
+                count_calls(de.LiveDeviceBatcher, "push") as push, \
+                count_calls(de.LiveDeviceBatcher, "_flush") as flush:
+            got, times, _, src, seen = live_run(port, [info], [frames], rate)
+        batches = de.stats["batches"] - before
+        n_whole = hold_live(port, [info], got, seen, f"live {rate}x")
+        sps, rt = live_rate(times[0], LIVE_FRAMES, rate, src.dropped_scans)
+        print(f"live scan path 128x2048 dual paced at {rate}x: received "
+              f"{len(got)} of {LIVE_FRAMES} frames ({n_whole} with every "
+              f"packet), {max(len(got) - 1, 0)} of {LIVE_FRAMES - 1} "
+              f"intervals, {sps:.2f} scans/s = {rt:.2f}x real time, "
+              f"dropped_scans {src.dropped_scans}, engine {src.engine_used}, "
+              f"{batches} engine batches, udp_recv_batch calls "
+              f"{native.calls['udp_recv_batch']}, SO_RCVBUF {src.rcvbuf}; "
+              f"every scan touched on the main thread, 0 elements from the "
+              f"ScanBatcher over the packets received; CPU s a second of "
+              f"the run: " + ", ".join(f"{k} {v:.3f}"
+                                       for k, v in src.cpu.items())
+              + f"; batcher thread CPU a scan: receive "
+              f"{recv.cpu / len(got) * 1e3:.2f} ms ({recv.n} polls), pushes "
+              f"{push.cpu / len(got) * 1e3:.2f} ms, of which flushes "
+              f"{flush.cpu / len(got) * 1e3:.2f} ms (wall "
+              f"{flush.seconds / max(flush.n, 1) * 1e3:.2f} ms a flush) "
+              f"[{CARD}]")
+        check(src.engine_used == ["device"] and src.device.type == "cuda",
+              f"live {rate}x: engine {src.engine_used} on {src.device}")
+        check(native.calls["udp_recv_batch"] > 0,
+              "live: the sockets were not drained by recvmmsg")
+        check(batches == len(got), f"live {rate}x: {batches} engine batches "
+              f"for {len(got)} scans")
+        if rate == 1.0:
+            check(len(got) == LIVE_FRAMES and n_whole == LIVE_FRAMES
+                  and src.dropped_scans == 0,
+                  f"live 1x: {len(got)} scans, {n_whole} whole, "
+                  f"{src.dropped_scans} dropped of {LIVE_FRAMES}")
+
+    # 2. the device engine and the numpy ScanBatcher in turns at 2x
+    turns = {"device": [], "numpy": []}
+    for _ in range(3):
+        for engine in turns:
+            got, times, _, src, _ = live_run(
+                port, [info], [frames[:INGEST_FRAMES]], 2.0, engine=engine,
+                record=False)
+            sps, rt = live_rate(times[0], INGEST_FRAMES, 2.0,
+                                src.dropped_scans)
+            turns[engine].append((sps, len(got), src.dropped_scans))
+    print("live in turns at 2x, 20 frames, scans/s (received, dropped): "
+          + "; ".join(f"{e} " + ", ".join(f"{v:.2f} ({n}, {d})"
+                                          for v, n, d in vals)
+                      for e, vals in turns.items()) + f" [{CARD}]")
+
+    # 3. two sensors through one source, collated, at 1x
+    two = [live_sensor(MAIN_PROFILE, 1024, 992240000001, LIVE_FRAMES, 31),
+           live_sensor(SINGLE_PROFILE, 2048, 992240000002, LIVE_FRAMES, 32)]
+    got, times, sets, src, seen = live_run(
+        port, [i for i, _ in two], [f for _, f in two], 1.0, engine="device")
+    n_whole = hold_live(port, [i for i, _ in two], got, seen, "live two")
+    full = sum(all(s is not None for s in ls) for ls in sets)
+    per = [live_rate(t, LIVE_FRAMES, 1.0, src.dropped_scans) for t in times]
+    print(f"live two sensors (1024x10 dual + 2048x10 single) at 1x: "
+          f"{len(got)} scans ({n_whole} whole), {full} full sets of "
+          f"{len(sets)}, per sensor "
+          + ", ".join(f"{len(t)} scans {sps:.2f} scans/s ({rt:.2f}x)"
+                      for t, (sps, rt) in zip(times, per))
+          + f", dropped_scans {src.dropped_scans}, engines "
+          f"{src.engine_used}; 0 elements from the ScanBatcher; CPU s a "
+          f"second of the run: " + ", ".join(f"{k} {v:.3f}"
+                                            for k, v in src.cpu.items())
+          + f" [{CARD}]")
+    check(src.engine_used == ["device", "device"] and full > 0
+          and all(len(t) > 0 for t in times),
+          f"live two sensors: {full} full sets, engines {src.engine_used}")
+
+    # 4. the planar ingest, main cell and a single-return sensor
+    single, sframes = live_sensor(SINGLE_PROFILE, 2048, 992240000003,
+                                  INGEST_FRAMES // 2, 41)
+    launched = {}
+    for sinfo, fr in ((info, frames[:INGEST_FRAMES]), (single, sframes)):
+        launched.update(_live_planar_ingest(torch, port, pk, dev, sinfo, fr))
+    return launched
+
+
+def _live_planar_ingest(torch, port, pk, dev, info, frames) -> dict:
+    """emulator -> SensorPacketSource -> PlanarStreamAssembler ->
+    ScanPipeline(cuda).decode_planar + project_planar -> destagger, paced
+    at 1x: one planar_project launch a released frame, XYZ bit-equal to
+    the plain version on the card and within 1 f32 ulp of the f64 LUT,
+    RANGE equal to PacketFormat's read of the packets."""
+    from ouster_sdk_tpu_torch.sensor import SensorPacketSource
+    from ouster_sdk_tpu_torch.sensor.emulator import SensorEmulator
+
+    lp, ip = free_udp_ports(2)
+    info.config.udp_port_lidar, info.config.udp_port_imu = lp, ip
+    emu = SensorEmulator(info, paced(frames), lidar_port=lp, imu_port=ip)
+    src = SensorPacketSource([f"127.0.0.1:{emu.http_port}"],
+                             sensor_info=[info])
+    asm = port.PlanarStreamAssembler(info)
+    pipe = port.ScanPipeline(info, device=dev)
+    case = "planar_dual" if pipe.dual else "planar"
+    counts, out, ms, last = {}, [], [], []
+
+    def project(rel):
+        fid, planes, hdrs, _ = rel
+        last[:] = [planes.copy(), hdrs.copy()]    # for the split below
+        t0 = time.perf_counter()
+        planes_d = pk.words_tensor(planes[None], dev)
+        hdrs_d = pk.words_tensor(hdrs[None], dev)
+        fields = pipe.decode_planar(planes_d, hdrs_d)
+        xyz = pipe.project_planar(planes_d, hdrs_d)
+        xyz_d = [port.destagger_torch(x, pipe.shifts)
+                 for x in (xyz if pipe.dual else (xyz,))]
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        # kept for the checks below: a CPU tensor would be a view of the
+        # assembler's pool, which the next-but-one release rewrites
+        out.append((fid, planes_d.clone(), hdrs_d.clone(), fields, xyz,
+                    xyz_d))
+
+    pk.reset_launches()
+    try:
+        emu.start()
+        deadline = time.monotonic() + len(frames) / 10 + 10
+        while time.monotonic() < deadline:
+            _, pkt = src.get_packet(timeout_sec=0.5)
+            if pkt is None:
+                if emu.passes_completed:
+                    break
+                continue
+            fid = asm.pf.frame_id(pkt.buf)
+            counts[fid] = counts.get(fid, 0) + 1
+            rel = asm.push(pkt)
+            if rel is not None:
+                project(rel)
+        rel = asm.flush()
+        if rel is not None:
+            project(rel)
+    finally:
+        src.close()
+        emu.stop()
+    launches = dict(pk.launches)
+    n_pkts = len(frames[0])
+    check(launches[case] == len(out) and sum(launches.values()) == len(out)
+          and len(out) > 0,
+          f"planar ingest: {launches} for {len(out)} released frames")
+    pf = port.PacketFormat.from_info(info)
+    lut64 = port.make_xyz_lut(info)
+    names = ("RANGE", "RANGE2") if pipe.dual else ("RANGE",)
+    n_diff = n_whole = 0
+    worst = 0.0
+    for fid, planes_d, hdrs_d, fields, xyz, xyz_d in out:
+        want = pk.unpack_project_planar_batched_plain(
+            planes_d, hdrs_d, pipe.planar_lut.stack, pipe.plan,
+            dual=pipe.dual)
+        n_diff += compare(xyz, want, f"planar ingest frame {fid}")[1]
+        check(all(x.shape == (1, 3, pipe.plan.h, pipe.plan.w) for x in xyz_d),
+              "planar ingest: destaggered XYZ shape")
+        if counts.get(fid) != n_pkts:
+            continue
+        n_whole += 1
+        bufs = np.stack([np.frombuffer(p, np.uint8) for p in frames[fid - 1]])
+        valid = np.concatenate([pf.col_status(b) for b in bufs]) & 1
+        for k, name in enumerate(names):
+            r = fields[name].cpu().numpy().astype(np.int64)
+            host = np.concatenate(list(pf.packet_field_all(name, bufs)),
+                                  axis=1).astype(np.int64)
+            check(np.array_equal(r[0], np.where(valid[None, :] != 0, host,
+                                                0)),
+                  f"planar ingest frame {fid}: decoded {name} differs from "
+                  f"PacketFormat's read of the packets")
+            worst = max(worst, ulp_check(as_tuple(xyz)[k].cpu().numpy(),
+                                         f64_reference(lut64, r)))
+    check(n_whole > 0 and worst <= 1.0,
+          f"planar ingest: {n_whole} whole frames, {worst} ulp from f64")
+    # the same steps on the last frame, warm, with the stream stopped
+    planes, hdrs = last
+    planes_d, hdrs_d = (pk.words_tensor(planes[None], dev),
+                        pk.words_tensor(hdrs[None], dev))
+    xyz = pipe.project_planar(planes_d, hdrs_d)
+    steps = {
+        "copy in": lambda: (pk.words_tensor(planes[None], dev),
+                            pk.words_tensor(hdrs[None], dev)),
+        "decode": lambda: pipe.decode_planar(planes_d, hdrs_d),
+        "project": lambda: pipe.project_planar(planes_d, hdrs_d),
+        "destagger": lambda: [port.destagger_torch(x, pipe.shifts)
+                              for x in as_tuple(xyz)]}
+    split = {}
+    for name, fn in steps.items():
+        best = float("inf")
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        split[name] = best * 1e3
+    med = float(np.median(ms))
+    print(f"live planar ingest {info.format.udp_profile_lidar.value} "
+          f"128x{pipe.plan.w} at 1x: {len(out)} frames released "
+          f"({n_whole} with every packet) -> {launches[case]} launches of "
+          f"planar_project<{case}>, {n_diff} elements from the plain version "
+          f"on the card, within {worst:.3f} f32 ulp of the f64 LUT, RANGE "
+          f"equal to PacketFormat's read; release -> XYZ (copy in, decode, "
+          f"project, destagger) {med:.3f} ms a frame (median of {len(ms)}, "
+          f"min {min(ms):.3f}, max {max(ms):.3f}); the steps warm with the "
+          f"stream stopped, best of 5: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+          + f" [{CARD}]")
+    return {case: launches[case]}
 
 
 if __name__ == "__main__":

@@ -51,6 +51,15 @@ kernel); each scan carries that XYZ as a cache, which XYZLut(info)(scan)
 serves while the scan's RANGE is unchanged. io.osf.Writer writes OSF files
 byte-identical to the JAX package's.
 
+Live sensors: `open_source("<host>")` gives a SensorScanSource
+(sensor.scan_source) that configures the sensor over HTTP (sensor.http),
+drains its UDP streams with one recvmmsg a socket (utils.native) and
+batches the packets on a thread into LiveDeviceBatchers on the device.
+sensor.emulator.SensorEmulator serves synthesized packets as a sensor on
+loopback (the tests' and the chip run's sensor), and
+io.frames.PlanarStreamAssembler turns a live packet stream into the
+word-planar frames ScanPipeline.decode_planar / project_planar take.
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
@@ -77,7 +86,7 @@ from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
                                LiveDeviceBatcher, OsfDeviceProjector,
                                make_osf_projector, supports_device_decode,
                                supports_osf_device_projection)
-from .io.frames import FrameReader, PlanarBatch
+from .io.frames import FrameReader, PlanarBatch, PlanarStreamAssembler
 from .io.osf import OsfScanSource
 from .io.pcap import PcapReader, PcapWriter
 from .io.pcap_scan_source import PcapScanSource
@@ -110,6 +119,8 @@ from .ops.unpack import (decode_frame, decode_frame_batch,
 from .ops.xyzlut import (XYZLutDevice, cartesian, cartesian_dd,
                          cartesian_f32, make_xyz_lut, make_xyz_lut_float,
                          to_device_lut)
+from .sensor.http import (LONG_HTTP_REQUEST_TIMEOUT_SECONDS,
+                          SHORT_HTTP_REQUEST_TIMEOUT_SECONDS, SensorHttp)
 from .state import lidar_scan_from_jax, lidar_scan_from_numpy
 
 
@@ -178,15 +189,18 @@ __all__ = [
     "io_type_from_extension", "IoType", "launches", "lidar_scan_from_jax",
     "lidar_scan_from_numpy", "LidarMode", "LidarPacket", "LidarScan",
     "LidarScanSet", "LiveDeviceBatcher", "log_pose",
-    "logging_error_handler", "lut_planes", "lutfree_supported",
+    "logging_error_handler", "LONG_HTTP_REQUEST_TIMEOUT_SECONDS",
+    "lut_planes", "lutfree_supported",
     "make_decode_plan", "make_osf_projector", "make_xyz_lut",
     "make_xyz_lut_float", "MultiScanSource", "open_packet_source",
     "open_source", "OsfDeviceProjector", "OsfScanSource", "OusterIoType",
     "Packet", "PacketFormat", "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
     "PcapScanSource", "PcapWriter", "PipelineConfig", "PlanarBatch",
-    "PlanarLut", "populate_extrinsics", "project_ranges", "reset_launches",
+    "PlanarLut", "PlanarStreamAssembler", "populate_extrinsics",
+    "project_ranges", "reset_launches",
     "resolve_field_types", "ScanBatcher", "ScanPipeline", "ScanSource",
-    "sensor_info_from_metadata", "SensorInfo", "Severity", "Singler",
+    "sensor_info_from_metadata", "SensorHttp", "SensorInfo", "Severity",
+    "SHORT_HTTP_REQUEST_TIMEOUT_SECONDS", "Singler",
     "Slicer", "SourceURLException", "stagger", "supports_device_decode",
     "supports_osf_device_projection", "to_device_lut", "transform",
     "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unpack_project",

@@ -1,6 +1,7 @@
 """IO namespace: pcap reading and writing, the pcap packet and scan
 sources, OSF reading, writing and file operations, the scan-source layer
-with open_source, the frame staging and the device engine."""
+with open_source, scan_to_packets, the frame staging and the device
+engine."""
 
 from .pcap import (  # noqa: F401
     PacketInfo,
@@ -43,6 +44,7 @@ from .osf_ops import (  # noqa: F401
     restore_osf_file_metablob,
     slice_and_cast,
 )
+from .save import scan_to_packets  # noqa: F401
 from .sources import (  # noqa: F401
     Collator,
     IoType,

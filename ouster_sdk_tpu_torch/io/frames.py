@@ -28,6 +28,9 @@ headers the device engine materializes LidarScans from. Where no g++ is
 found the numpy versions here run instead, with the same contracts and
 the same bytes out: `pcap_scan`, `group_frames_planar` and `_group`. They
 are also the oracle the native staging is tested against.
+
+PlanarStreamAssembler is the live twin of word-planar staging: packets
+pushed one by one, frames released word-planar at each frame-id boundary.
 """
 
 from __future__ import annotations
@@ -776,3 +779,67 @@ class FrameReader:
             pos += consumed
             yield (fid_out[:nf].copy(), planes[:nf], hdrs[:nf],
                    ts_out[:nf].copy())
+
+
+class PlanarStreamAssembler:
+    """Live planar ingest: packets fed one by one as they arrive (e.g.
+    from a sensor.SensorPacketSource) come out as word-planar frames, the
+    input of ScanPipeline.decode_planar / project_planar and of the planar
+    projection kernel: the streaming twin of iter_planar_chunks. A frame
+    is released when a packet of another frame id arrives (the batcher's
+    frame-id boundary; flush() releases the last one), staged by one
+    grouper call (stage_planar: the native one where the library is
+    built). Buffers are pooled: a released frame's planes and headers stay
+    valid until the next-but-one release.
+    """
+
+    def __init__(self, info: SensorInfo):
+        self.info = info
+        self.pf = PacketFormat.from_info(info)
+        self.plan = make_decode_plan(info)
+        p = self.plan
+        self._pools = [(np.zeros((1, p.pw, p.h, p.w), np.uint32),
+                        np.zeros((1, p.schw, p.w), np.uint32))
+                       for _ in range(2)]
+        self._flip = 0
+        self._cur_fid: Optional[int] = None
+        self._bufs: List[bytes] = []
+        self._ts = 0
+
+    def _flush(self) -> Tuple[int, np.ndarray, np.ndarray, int]:
+        size = self.pf.lidar_packet_size
+        payloads = np.frombuffer(b"".join(self._bufs), np.uint8)
+        offsets = np.arange(len(self._bufs), dtype=np.int64) * size
+        planes, hdrs = self._pools[self._flip]
+        self._flip ^= 1
+        fid_out = np.zeros(1, np.int64)
+        ts_out = np.zeros(1, np.uint64)
+        stage_planar(payloads, offsets, None, self.pf, self.plan, planes,
+                     hdrs, fid_out, ts_out)
+        self._bufs = []
+        return int(fid_out[0]), planes[0], hdrs[0], self._ts
+
+    def push(self, packet) -> Optional[Tuple[int, np.ndarray, np.ndarray,
+                                             int]]:
+        """Feed one lidar packet (a LidarPacket, or its bytes); returns
+        (frame_id, planes (pw, h, w) u32, col_hdrs (schw, w) u32, host_ts
+        of the frame's first packet) when a frame releases, else None."""
+        buf = packet.buf if hasattr(packet, "buf") else packet
+        if len(buf) != self.pf.lidar_packet_size:
+            return None
+        fid = self.pf.frame_id(np.frombuffer(bytes(buf), np.uint8))
+        out = None
+        if self._cur_fid is not None and fid != self._cur_fid and \
+                self._bufs:
+            out = self._flush()
+        if self._cur_fid != fid:
+            self._cur_fid = fid
+            self._ts = getattr(packet, "host_timestamp", 0)
+        self._bufs.append(bytes(buf))
+        return out
+
+    def flush(self) -> Optional[Tuple[int, np.ndarray, np.ndarray, int]]:
+        """Release the partial frame currently buffered."""
+        if not self._bufs:
+            return None
+        return self._flush()

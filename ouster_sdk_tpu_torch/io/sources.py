@@ -6,12 +6,14 @@ io_type.h:17-25). Sources are Python iterables; the registry maps an IoType
 to a constructor so backends self-register exactly like the reference's
 static registry (ref: impl/open_source_impl.h:98-122).
 
-Two backends are registered: PCAP (io/pcap_scan_source.py), whose scans
-decode on the device engine, and OSF (io/osf_source.py), whose scans decode
-on the host and get their XYZ projected on the device. Every other IoType
-is recognized and refused with "Unhandled source type" until its backend
-is ported. The options carry `device` beside the reference's: where the
-engine decodes or the projector runs (CUDA unless named).
+Three backends are registered: PCAP (io/pcap_scan_source.py), whose scans
+decode on the device engine, OSF (io/osf_source.py), whose scans decode on
+the host and get their XYZ projected on the device, and SENSOR
+(sensor/sensor_scan_source.py), a live sensor's UDP streams batched into
+scans decoded on the device. Every other IoType is recognized and refused
+with "Unhandled source type" until its backend is ported. The options
+carry `device` beside the reference's: where the engine decodes or the
+projector runs (CUDA unless named).
 """
 
 from __future__ import annotations
@@ -658,12 +660,14 @@ def open_source(source: str, *, sensor_idx: int = -1, collate: bool = True,
 
     sensor_idx >= 0 returns a single-sensor view; otherwise the collated
     multi-sensor source. `device` (an option) is where the engine decodes
-    (pcap) or the projector runs (OSF): CUDA unless named, and an error at
-    iteration without a GPU.
+    (pcap, a live sensor) or the projector runs (OSF): CUDA unless named,
+    and an error without a GPU (a live source raises when opened, the
+    others at iteration).
     """
     # the backends register their constructors when imported
     from . import osf_source  # noqa: F401
     from . import pcap_scan_source  # noqa: F401
+    from ..sensor import sensor_scan_source  # noqa: F401
 
     if len(source) == 0:
         raise ValueError("No valid source specified")

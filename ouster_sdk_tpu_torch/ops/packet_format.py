@@ -258,6 +258,24 @@ class PacketFormat:
     def _pkt_words(self, buf) -> np.ndarray:
         return self._as_words(buf)
 
+    def scalar_reader(self, fi):
+        """Byte-level closure reading one packet-header scalar straight
+        from raw packet bytes (bytes or a u8 array), skipping the u32 word
+        staging: the live receive path checks init_id and prod_sn on every
+        packet (same le64-load semantics as read_bits / FieldInfo::get,
+        ref: parsing.cpp:59-72)."""
+        byte0, b = divmod(fi.bit_start, 8)
+        nb = (b + fi.bit_size + 7) // 8
+        mask = (1 << fi.bit_size) - 1
+        up = fi.upshift
+
+        def read(data) -> int:
+            v = int.from_bytes(bytes(data[byte0:byte0 + nb]), "little")
+            v = (v >> b) & mask
+            return v << up if up else v
+
+        return read
+
     def packet_type(self, buf) -> int:
         return int(read_bits(self._pkt_words(buf), self.geom.packet_type))
 

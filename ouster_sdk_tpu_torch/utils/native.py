@@ -3,22 +3,25 @@
 The library is the host staging of every path: one pass over a capture
 with IPv4 reassembly (pcap_scan), packets grouped into packet-layout frame
 slots (group_frames) or into word planes with the scan headers
-(group_frames_planar), the packet footer's CRC64, and the PNG scanline
-unfilter of the OSF field codec (utils/png.py). It is built with g++
+(group_frames_planar), the packet footer's CRC64, the PNG scanline
+unfilter of the OSF field codec (utils/png.py), and the live receive
+path's drain of a UDP socket with one recvmmsg (udp_recv_batch,
+sensor/scan_source.py). It is built with g++
 at first use into kernels/_build/ (git-ignored), keyed by a hash of the
 source and of the machine (-march=native binaries are machine-specific), and
 written to a temporary file that is renamed into place, so that several
 processes may build at once.
 
 `get_lib()` is None only when no g++ is on PATH: the staging then runs in
-numpy (io.frames keeps those versions, with the same contracts). A build
+numpy (io.frames keeps those versions, with the same contracts), and the
+live receive path reads one datagram a recv. A build
 or load that starts and fails raises with the compiler's output. Every
 wrapper checks the dtype, shape and C-contiguity of each array it hands to
 C before the call, and counts its calls in `calls`.
 
-The library also exports onat_udp_recv_batch, onat_group_frames_packed,
-onat_bp64_encode, onat_stage_frame and onat_crc64_check_batch; they are
-bound with their signatures and have no wrapper yet.
+The library also exports onat_group_frames_packed, onat_bp64_encode,
+onat_stage_frame and onat_crc64_check_batch; they are bound with their
+signatures and have no wrapper yet.
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 #: calls into the library, by wrapper (reset with reset_calls)
 calls: Dict[str, int] = {"crc64": 0, "pcap_scan": 0, "group_frames": 0,
-                         "group_frames_planar": 0, "png_unfilter": 0}
+                         "group_frames_planar": 0, "png_unfilter": 0,
+                         "udp_recv_batch": 0}
 #: seconds the build took in this process (None: loaded from disk, or not
 #: loaded yet)
 build_seconds: Optional[float] = None
@@ -400,3 +404,34 @@ def group_frames_planar(payloads: np.ndarray, offsets: np.ndarray,
         _ptr(out_pkt_hdrs), _ptr(out_first_hdr), _ptr(io_released),
         ftr_words)
     return int(consumed), int(nframes[0])
+
+
+def udp_recv_batch(sock, stride: int, max_msgs: int = 256,
+                   workspace: Optional[dict] = None):
+    """Drain up to `max_msgs` datagrams of a non-blocking UDP socket with
+    one recvmmsg: (payloads (n, stride) u8, sizes (n,) i64, ts_ns), one
+    host timestamp for the whole batch, taken after the call returned. A
+    datagram longer than `stride` is cut to it. None without the library
+    or when nothing is pending. `workspace`, a dict the caller keeps,
+    holds the receive buffers across calls (fresh allocations of this
+    size are page-faulted on every drain); the returned arrays are views
+    into it, valid until the next call with the same workspace."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    if not 0 < max_msgs <= 1024 or stride <= 0:
+        raise ValueError(f"max_msgs {max_msgs} outside 1..1024 or stride "
+                         f"{stride} not positive")
+    ws = workspace if workspace is not None else {}
+    buf = ws.get("buf")
+    if buf is None or buf.shape != (max_msgs, stride):
+        buf = ws["buf"] = np.empty((max_msgs, stride), dtype=np.uint8)
+        ws["sizes"] = np.empty(max_msgs, dtype=np.int64)
+        ws["ts"] = np.zeros(1, dtype=np.uint64)
+    sizes, ts = ws["sizes"], ws["ts"]
+    calls["udp_recv_batch"] += 1
+    n = lib.onat_udp_recv_batch(sock.fileno(), _ptr(buf), stride, max_msgs,
+                                _ptr(sizes), _ptr(ts))
+    if n <= 0:
+        return None
+    return buf[:n], sizes[:n], int(ts[0])

@@ -19,7 +19,11 @@ only when a field is touched, and the projector's XYZ comes from the
 planar kernel, bit-exact against `_proj_lean`. OSF replay: a file the
 port's Writer made, read back through open_source, gives the scans
 written, with XYZ caches from the planar kernel (one launch a window and
-frame), bit-exact against `_proj_lean`, that XYZLut serves."""
+frame), bit-exact against `_proj_lean`, that XYZLut serves. Live sensors:
+the port's emulator on loopback -> open_source on CUDA gives scans whose
+fields, touched on the main thread, equal the ScanBatcher's over the
+packets received; the planar ingest launches planar_project once a
+released frame."""
 
 import numpy as np
 import pytest
@@ -789,3 +793,41 @@ def test_osf_replay_projects_through_the_kernel(cuda, tmp_path):
         for ls in got:
             cache = ls.cached_xyz(0, False, ls.field("RANGE"))
             assert np.array_equal(lut(ls), cache.astype(np.float64))
+
+
+# -- live sensors on the card -------------------------------------------------
+
+@pytest.mark.cuda
+def test_live_scans_on_the_card_equal_the_batcher(cuda):
+    """The port's emulator -> open_source("127.0.0.1:<port>") on CUDA:
+    scans arrive with their fields left on the card, and touched on the
+    main thread (the batcher thread decoded them) they equal the
+    ScanBatcher's over the packets received, headers included."""
+    import chip_smoke as cs
+
+    info, frames = cs.live_sensor("RNG19_RFL8_SIG16_NIR16_DUAL", 512,
+                                  992240000050, 6, seed=3, h=32)
+    got, _, _, src, seen = cs.live_run(pt, [info], [frames], 1.0,
+                                       touch=False)
+    assert src.engine_used == ["device"] and src.device.type == "cuda"
+    assert got and all(s.fields_deferred for _, s in got)
+    for _, s in got:
+        s.field("RANGE")
+    assert sum(cs.whole(s) for _, s in got) > 0
+    assert cs.hold_live(pt, [info], got, seen, "card") >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("profile", ["RNG19_RFL8_SIG16_NIR16",
+                                     "RNG19_RFL8_SIG16_NIR16_DUAL"])
+def test_live_planar_ingest_launches_the_kernel(cuda, profile):
+    """emulator -> SensorPacketSource -> PlanarStreamAssembler ->
+    project_planar on CUDA tensors: one planar_project launch a released
+    frame, bit-equal to the plain version (checked inside)."""
+    import chip_smoke as cs
+
+    info, frames = cs.live_sensor(profile, 512, 992240000051, 4, seed=5,
+                                  h=32)
+    launched = cs._live_planar_ingest(torch, pt, pk, cuda, info, frames)
+    case = "planar_dual" if profile.endswith("DUAL") else "planar"
+    assert list(launched) == [case] and launched[case] >= 1

@@ -327,3 +327,49 @@ def test_wrapper_rejects_other_devices_and_precisions():
         pipe.project_planar(planes, hdrs,
                             poses=np.tile(np.eye(4, dtype=np.float32),
                                           (2, pipe.plan.w - 1, 1, 1)))
+
+
+def test_sensor_runs_with_jax_unimportable():
+    """The live layer with jax and the JAX package unimportable: the
+    port's emulator (HTTP plane, mDNS advertiser, paced UDP) serving
+    open_source("127.0.0.1:<port>") on the CPU, its scans equal to the
+    ScanBatcher's over the packets received, and the planar assembler's
+    frames through decode_planar + project_planar."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        from ouster_sdk_tpu_torch.sensor.emulator import SensorEmulator
+        info, frames = cs.live_sensor(cs.MAIN_PROFILE, 256, 992240000060, 4,
+                                      seed=2, h=16)
+        got, _, _, src, seen = cs.live_run(pt, [info], [frames], 2.0,
+                                           device="cpu")
+        assert src.engine_used == ["device"] and got
+        assert all(not s.fields_deferred for _, s in got)   # touched
+        assert cs.hold_live(pt, [info], got, seen, "isolated") >= 1
+        emu = SensorEmulator(info, cs.paced(frames), rate=4.0, mdns=True,
+                             mdns_port=0).start()
+        try:
+            h = pt.SensorHttp.create(f"127.0.0.1:{{emu.http_port}}")
+            assert pt.sensor_info_from_metadata(h.metadata()).sn == info.sn
+            assert emu.mdns_port > 0
+        finally:
+            emu.stop()
+        asm = pt.PlanarStreamAssembler(info)
+        rel = [asm.push(p) for f in frames for p in f] + [asm.flush()]
+        fid, planes, hdrs, _ = [r for r in rel if r is not None][0]
+        pipe = pt.ScanPipeline(info, device="cpu")
+        xyz, xyz2 = pipe.project_planar(planes[None], hdrs[None])
+        assert fid == 1 and xyz.shape == (1, 3, 16, 256)
+        assert pipe.decode_planar(planes, hdrs)["RANGE"].shape == (16, 256)
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
