@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels and the native host library (g++, the port's own
 C++ copy) from the sources in this checkout, synthesizes captures with the
-port's own packet and pcap writers, and drives the port's seven paths
+port's own packet and pcap writers, and drives the port's nine paths
 through the entry points a user calls. Every path stages its packets
 through the native library: its call counts are read after each path and
 the run fails unless each path made a capture scan and grouper calls.
@@ -59,7 +59,25 @@ source, collated, and the planar ingest (SensorPacketSource ->
 PlanarStreamAssembler -> decode_planar + project_planar -> destagger)
 launches planar_project once a released frame, held bit-equal to the plain
 version and within 1 f32 ulp of the f64 LUT; scans/s, drops, real time x,
-the effective SO_RCVBUF and the ingest's ms a frame are printed.
+the effective SO_RCVBUF and the ingest's ms a frame are printed. The wire
+replay path, the JAX bench's e2e_run: pcap -> FrameReader.iter_bp64_chunks
+(a ray-cast room scene, BP64-coded by the native encoder) or
+iter_packed_chunks (white noise, 19-bit streams) -> fused_pipelined (the
+ChunkFuser packs each chunk of 8 on the staging thread) -> one pageable
+copy a chunk -> unfuse_words -> project_bp64_batched /
+project_packed_batched (decode in PyTorch, planar_project once a chunk)
+-> a sum on the card, no readback in a pass; four cells (128x2048 dual,
+32 frames; 128x1024 single, 64 frames; scene and noise), every chunk held
+bit-equal to the planar path and to the plain version, one chunk with
+poses bit-equal between the card and the CPU, bits/px, MB a frame,
+native calls, host, copy, decode and projection ms/frame and frames/s
+(best, min, median of 5 passes) printed. The multi-device path:
+ScanPipeline.sharded on a mesh of the one card and of the card listed
+twice, project bit-equal to project_planar (dual; with poses, the first
+return), map_source over the main capture with its tail padded,
+sharded_multi_sensor_step on two sensors (XYZ bit-equal to
+ScanPipeline.batch, the centroid within rtol 1e-5 of a float64 sum) and
+fuse_multi_sensor_clouds against the CPU.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -846,6 +864,20 @@ def _run(torch, port, pk, dev, tmp) -> int:
         entry["launches"] += n
         print(f"planar_project<{case}>: {n} more launches on the live "
               f"planar ingest; {entry['launches']} in all")
+    for phase, run in (
+            ("wire replay", lambda: _run_wire(torch, port, pk, dev, tmp,
+                                              *captures[MAIN_PROFILE])),
+            ("multi-device", lambda: _run_multi(
+                torch, port, pk, dev, *captures[MAIN_PROFILE],
+                staged[MAIN_PROFILE][2]))):
+        t0 = time.perf_counter()
+        launched = run()
+        print(f"{phase} phase: {time.perf_counter() - t0:.1f} s")
+        for case, n in launched.items():
+            entry = kernels[pk.CASES.index(case)]
+            entry["launches"] += n
+            print(f"planar_project<{case}>: {n} more launches on the "
+                  f"{phase} path; {entry['launches']} in all")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -2794,6 +2826,444 @@ def _live_planar_ingest(torch, port, pk, dev, info, frames) -> dict:
           + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
           + f" [{CARD}]")
     return {case: launches[case]}
+
+
+# -- wire replay: packed and BP64 staging -> one fused upload -> decode ----
+
+E2E_BATCH = 8        # frames a chunk, the JAX bench's E2E_BATCH
+WIRE_PASSES = 5      # timed passes a cell, after two warm passes
+
+
+def scene_ranges(info) -> np.ndarray:
+    """Ray-cast the sensor's beam grid against a box room (12 x 8 x 4 m,
+    sensor at 1 m) with two cylindrical pillars -> (h, w) f64 range in mm
+    (0 where no geometry): piecewise-smooth surfaces with edges, what real
+    captures look like (a numpy copy of the JAX bench's scene)."""
+    h = info.format.pixels_per_column
+    w = info.format.columns_per_frame
+    az = np.deg2rad(np.asarray(info.beam_azimuth_angles, float))
+    alt = np.deg2rad(np.asarray(info.beam_altitude_angles, float))
+    theta = 2 * np.pi * (np.arange(w) / w)[None, :] + az[:, None]
+    phi = alt[:, None]
+    d = np.stack([np.cos(phi) * np.cos(theta),
+                  np.cos(phi) * np.sin(theta),
+                  np.broadcast_to(np.sin(phi), (h, w))], axis=-1)
+    o = np.array([0.0, 0.0, 1.0])
+    bounds = ((-6.0, 6.0), (-4.0, 4.0), (0.0, 4.0))
+    t = np.full((h, w), np.inf)
+    for axis in range(3):
+        for b in bounds[axis]:
+            denom = d[..., axis]
+            tt = np.where(np.abs(denom) > 1e-9,
+                          (b - o[axis]) / np.where(np.abs(denom) > 1e-9,
+                                                   denom, 1.0), np.inf)
+            tt = np.where(tt > 0.05, tt, np.inf)
+            p = o[None, None] + d * tt[..., None]
+            ok = np.isfinite(tt)
+            for a2 in range(3):
+                if a2 == axis:
+                    continue
+                lo, hi = bounds[a2]
+                ok &= (p[..., a2] >= lo - 1e-6) & (p[..., a2] <= hi + 1e-6)
+            t = np.where(ok, np.minimum(t, tt), t)
+    for cx, cy, r in ((2.5, 1.0, 0.3), (-1.5, -2.0, 0.5)):
+        dx, dy = d[..., 0], d[..., 1]
+        ox, oy = -cx, -cy
+        A = np.maximum(dx * dx + dy * dy, 1e-12)
+        B = 2 * (ox * dx + oy * dy)
+        C = ox * ox + oy * oy - r * r
+        disc = B * B - 4 * A * C
+        tt = np.where(disc > 0,
+                      (-B - np.sqrt(np.maximum(disc, 0))) / (2 * A), np.inf)
+        tt = np.where(tt > 0.05, tt, np.inf)
+        z = o[2] + d[..., 2] * tt
+        t = np.minimum(t, np.where((z >= 0) & (z <= 4), tt, np.inf))
+    return np.where(np.isfinite(t), t * 1000.0, 0.0)
+
+
+def synth_scene_packets(info, n_frames: int, dual: bool, seed: int = 2):
+    """Lidar packets of a scene capture (frame ids 1..n_frames) as (payload
+    bytes, host_ts): scene_ranges with sensor noise (sigma 3 mm) and 4 %
+    dropouts a frame, and where dual, second returns 300 mm behind on 15 %
+    of the valid pixels; every column valid (the JAX bench's scene
+    capture)."""
+    from ouster_sdk_tpu_torch.ops.packet_format import PacketWriter
+
+    base = scene_ranges(info)
+    pw = PacketWriter(info.format)
+    cpp = pw.columns_per_packet
+    rng = np.random.default_rng(seed)
+    ts = 10**9
+    for fid in range(1, n_frames + 1):
+        noise = rng.normal(0, 3.0, size=base.shape)
+        v = np.clip(base + noise, 0, (1 << 19) - 1).astype(np.uint64)
+        v[base == 0] = 0
+        v[rng.random(base.shape) < 0.04] = 0
+        if dual:
+            second = (v + 300 + rng.normal(0, 3.0, size=base.shape)
+                      .astype(np.int64)).astype(np.uint64)
+            second[v == 0] = 0
+            second[rng.random(base.shape) >= 0.15] = 0
+            second = np.minimum(second, (1 << 19) - 1)
+        for p in range(info.format.columns_per_frame // cpp):
+            buf = pw.new_packet()
+            pw.set_packet_header(buf, init_id=info.init_id, prod_sn=info.sn)
+            pw.set_frame_id(buf, fid)
+            m0 = p * cpp
+            pw.set_col_headers(
+                buf, np.arange(cpp, dtype=np.uint64) + m0 * 1000,
+                np.arange(cpp, dtype=np.uint16) + m0,
+                np.ones(cpp, dtype=np.uint32))
+            pw.set_field(buf, "RANGE", v[:, m0:m0 + cpp])
+            if dual:
+                pw.set_field(buf, "RANGE2", second[:, m0:m0 + cpp])
+            yield bytes(buf), ts
+            ts += 10**5
+        ts += 10**7
+
+
+def _run_wire(torch, port, pk, dev, tmp, main_info, main_path) -> dict:
+    """Wire replay, the JAX bench's e2e_run: pcap -> FrameReader.
+    iter_bp64_chunks / iter_packed_chunks -> fused_pipelined (ChunkFuser on
+    the staging thread) -> one pageable host->device copy a chunk ->
+    unfuse_words -> project_bp64_batched / project_packed_batched
+    (planar_project once a chunk) -> a sum on the device, no readback in a
+    pass. Four cells: 128x2048 dual (32 frames) and 128x1024 single (64
+    frames), a scene through BP64 and white noise through packed staging.
+    Returns the hold passes' launches by case."""
+    single_info = synth_info(SINGLE_PROFILE, w=1024)
+    noise_single = os.path.join(tmp, "wire_noise_128x1024.pcap")
+    synth_capture(noise_single, single_info, 64)
+    cells = []
+    for tag, info, n, noise in (("128x2048_dual", main_info, 32, main_path),
+                                ("128x1024_single", single_info, 64,
+                                 noise_single)):
+        scene = os.path.join(tmp, f"wire_scene_{tag}.pcap")
+        t0 = time.perf_counter()
+        write_capture(scene, synth_scene_packets(
+            info, n, info.format.udp_profile_lidar.value == MAIN_PROFILE))
+        print(f"synthesized the {tag} scene ({n} frames, "
+              f"{os.path.getsize(scene) / 1e6:.1f} MB) in "
+              f"{time.perf_counter() - t0:.1f} s")
+        cells.append((tag, "scene", "bp64", info, scene, n))
+        cells.append((tag, "noise", "packed", info, noise, n))
+    launched = {}
+    for cell in cells:
+        for case, k in _wire_cell(torch, port, pk, dev, *cell).items():
+            launched[case] = launched.get(case, 0) + k
+    return launched
+
+
+def _wire_cell(torch, port, pk, dev, tag, kind, codec, info, path,
+               n_frames) -> dict:
+    from ouster_sdk_tpu_torch.ops import bp64 as bp
+    from ouster_sdk_tpu_torch.ops import packed as pa
+    from ouster_sdk_tpu_torch.utils import native
+
+    B = E2E_BATCH
+    what = f"wire replay [{tag}/{kind}/{codec}]"
+    pipe = port.ScanPipeline(info)
+    plan, lut, dual = pipe.plan, pipe.planar_lut.stack, pipe.dual
+    fields, nbits, ups = pa.packed_range_fields(plan, dual)
+    reader = port.FrameReader(path, info)
+
+    def chunks():
+        it = (reader.iter_bp64_chunks if codec == "bp64"
+              else reader.iter_packed_chunks)
+        return it(B, fields=fields, nbits=nbits, pool_depth=2)
+
+    def select(item):
+        # on the staging thread: pad the tail chunk to the batch
+        fids, arrs = item[0], list(item[1:-1])
+        n = fids.size
+        if n < B:
+            arrs = [np.concatenate([a, np.broadcast_to(
+                a[-1:], (B - n,) + a.shape[1:])]) for a in arrs]
+        return fids, arrs
+
+    def ranges(parts):
+        if codec == "bp64":
+            return bp.bp64_ranges(*parts[:3], plan, ups, dual)
+        return pa.packed_ranges(parts[0], plan, nbits, ups, dual)
+
+    def project(parts, poses=None):
+        fn = (bp.project_bp64_batched if codec == "bp64"
+              else pa.project_packed_batched)
+        return fn(*parts, lut.to(parts[0].device), plan, nbits,
+                  upshifts=ups, dual=dual, poses=poses)
+
+    def one_pass(limit=None, keep=None):
+        t0 = time.perf_counter()
+        acc = torch.zeros((), dtype=torch.float32, device=dev)
+        n = 0
+        for fids, fused, layout in port.fused_pipelined(chunks, select,
+                                                        depth=2):
+            n += fids.size
+            parts = pa.unfuse_words(
+                torch.from_numpy(fused.view(np.int32)).to(dev), layout)
+            out = as_tuple(project(parts))
+            for o in out:
+                acc = acc + o.sum()
+            if keep is not None:
+                keep.append((fids, parts, out, fused.nbytes))
+            if limit is not None and n >= limit:
+                break
+        torch.cuda.synchronize()
+        return n, time.perf_counter() - t0, acc
+
+    # the hold pass: launches counted from zero, outputs kept
+    native.reset_calls()
+    pk.reset_launches()
+    kept = []
+    n, _, _ = one_pass(keep=kept)
+    launches = {k: v for k, v in pk.launches.items() if v}
+    case = "planar_dual" if dual else "planar"
+    check(n == n_frames and launches == {case: len(kept)},
+          f"{what}: {n} of {n_frames} frames, launches {launches} for "
+          f"{len(kept)} chunks")
+    calls = dict(native.calls)
+    want_calls = {"bp64_encode": n_frames} if codec == "bp64" else {
+        "group_frames_packed": len(kept)}
+    check(calls["pcap_scan"] == 1
+          and all(calls[k] == v for k, v in want_calls.items()),
+          f"{what}: native calls {calls}, expected {want_calls}")
+
+    # every chunk's XYZ against the planar path on the same frames
+    planar = {}
+    for fids, planes, hdrs, _ in port.FrameReader(path, info) \
+            .iter_planar_chunks(B):
+        out = as_tuple(pk.unpack_project_planar_batched(
+            pk.words_tensor(planes, dev), pk.words_tensor(hdrs, dev), lut,
+            plan, dual=dual))
+        for i, f in enumerate(fids):
+            planar[int(f)] = [o[i] for o in out]
+    check(sorted(planar) == sorted(int(f) for c in kept for f in c[0]),
+          f"{what}: frame ids differ from the planar path's")
+    n_planar = n_plain = 0
+    for fids, parts, out, _ in kept:
+        for i, f in enumerate(fids):
+            for o, p in zip(out, planar[int(f)]):
+                n_planar += int((o[i].view(torch.int32)
+                                 != p.view(torch.int32)).sum())
+        # the kernel against the plain version on the same device tensors
+        plain = as_tuple(pk.project_ranges_batched_plain(
+            ranges(parts), parts[-1], lut, plan))
+        n_plain += sum(int((o.view(torch.int32) != q.view(torch.int32))
+                           .sum()) for o, q in zip(out, plain))
+    check(n_planar == 0 and n_plain == 0,
+          f"{what}: {n_planar} elements differ from the planar path, "
+          f"{n_plain} from the plain version")
+    # one chunk with poses, on the card against the CPU's plain route
+    parts = kept[0][1]
+    poses = torch.from_numpy(random_poses(B, plan.w, seed=8))
+    got = as_tuple(project(parts, poses.to(dev)))
+    want = as_tuple(project([p.cpu() for p in parts], poses))
+    n_poses = sum(int((g.cpu().view(torch.int32) != w.view(torch.int32))
+                      .sum()) for g, w in zip(got, want))
+    check(n_poses == 0, f"{what}: with poses {n_poses} elements differ "
+          f"between the card and the CPU")
+    check(all(torch.isfinite(o).all() for c in kept for o in c[2]),
+          f"{what}: non-finite XYZ")
+
+    # bytes shipped
+    px = plan.h * plan.w * len(fields)
+    if codec == "bp64":
+        used = []
+        for fids, parts, _, _ in kept:
+            wid = parts[1][:fids.size].cpu().numpy().reshape(fids.size, -1)
+            used += list(((wid & 0x1F).astype(np.int64) * 2
+                          + (wid >> 7) * 2).sum(axis=1))
+        pay_bits = float(np.mean(used)) * 32 / px
+        bits = (f"{pay_bits:.2f} bits/px of payload, "
+                f"{pay_bits + 40 / 64:.2f} with widths and anchors")
+    else:
+        bits = f"{nbits} bits/px"
+    mb = kept[0][3] / B / 1e6
+
+    # passes: two warm, one cheap chunk, then the timed ones
+    one_pass()
+    one_pass()
+    one_pass(limit=B)
+    native.reset_calls()
+    passes = [one_pass()[:2] for _ in range(WIRE_PASSES)]
+    calls = {k: v for k, v in native.calls.items() if v}
+    rates = sorted(n / dt for n, dt in passes)
+
+    # stages, warm: host staging alone, the encoder alone, copy in, decode,
+    # projection
+    def host_only():
+        for _ in chunks():
+            pass
+
+    host_ms = min(_host_s(host_only) for _ in range(3)) / n_frames * 1e3
+    encode = ""
+    if codec == "bp64":
+        planes = next(port.FrameReader(path, info).iter_planar_chunks(
+            B, words=tuple(f[0] for f in fields)))[1]
+        nb = plan.w // 64
+        bits_ = np.asarray([f[1] for f in fields], np.int64)
+        cap = len(fields) * plan.h * nb * (2 * (nbits + 1) + 2) + 2
+        pay = np.zeros(cap, np.uint32)
+        wid = np.zeros(len(fields) * plan.h * nb, np.uint8)
+        anc = np.zeros(len(fields) * plan.h * nb, np.uint32)
+
+        def encode_all():
+            for fr in planes:
+                native.bp64_encode(fr, bits_, nbits, pay, wid, anc)
+
+        enc_ms = min(_host_s(encode_all) for _ in range(3)) / B * 1e3
+        encode = f"native encode {enc_ms:.3f} ms/frame, "
+    fids, parts, _, nbytes = kept[0]
+    fused_np = np.zeros(nbytes // 4, np.int32)
+    rs = ranges(parts)
+    copy_ms = cuda_ms(lambda: torch.from_numpy(fused_np).to(dev), iters=10,
+                      windows=3, warm=2)[0]
+    dec_ms = cuda_ms(lambda: ranges(parts), iters=10, windows=3, warm=2)[0]
+    proj_ms = cuda_ms(lambda: pk.project_ranges_batched(rs, parts[-1], lut,
+                                                        plan),
+                      iters=10, windows=3, warm=2)[0]
+    print(f"{what}: {n_frames} frames in chunks of {B}, {len(kept)} "
+          f"launches of planar_project<{case}> (1 a chunk), 0 elements "
+          f"differ from the planar path and from the plain version, with "
+          f"poses 0 between the card and the CPU; {bits}, {mb:.3f} MB a "
+          f"frame shipped (fused buffer); native calls in {WIRE_PASSES} "
+          f"passes {calls}")
+    print(f"{what}: host staging {host_ms:.3f} ms/frame ({encode}best of "
+          f"3), copy in {copy_ms / B:.4f} ms/frame (pageable), device "
+          f"decode {dec_ms / B:.4f} ms/frame, projection {proj_ms / B:.4f} "
+          f"ms/frame; {rates[-1]:.2f} frames/s best of {WIRE_PASSES} (min "
+          f"{rates[0]:.2f}, median {rates[len(rates) // 2]:.2f}; "
+          + "/".join(f"{n / dt:.2f}" for n, dt in passes) + f") [{CARD}]")
+    return launches
+
+
+def _host_s(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    return time.perf_counter() - t0
+
+
+# -- the multi-device face ---------------------------------------------------
+
+def _run_multi(torch, port, pk, dev, info, path, runs) -> dict:
+    """ScanPipeline.sharded on a mesh of the one card and on the card
+    listed twice (the split and the join run on it): project bit-equal to
+    project_planar (dual, and with poses the first return), map_source
+    over the main capture (every frame once, the tail padded),
+    sharded_multi_sensor_step (XYZ bit-equal to ScanPipeline.batch, the
+    centroid within rtol 1e-5 of a float64 sum) and
+    fuse_multi_sensor_clouds (against the CPU). Returns the launches of
+    project and map_source by case."""
+    import copy
+
+    pipe = port.ScanPipeline(info)
+    fids, planes, hdrs, _, out, outw, poses = runs[0]
+    n_frames = planes.shape[0]
+    meshes = (("one card", port.make_mesh()),
+              ("the card twice", port.make_mesh(devices=[dev, dev])))
+    check(meshes[0][1].devices.size == torch.cuda.device_count(),
+          "make_mesh() did not take every CUDA device")
+    launched = {}
+    for name, mesh in meshes:
+        sp = pipe.sharded(mesh)
+        k = sp.n_shards
+        pk.reset_launches()
+        got = sp.project(sp.shard(planes), sp.shard(hdrs))
+        gotw = sp.project(sp.shard(planes), sp.shard(hdrs), sp.shard(poses))
+        torch.cuda.synchronize()
+        launches = {c: v for c, v in pk.launches.items() if v}
+        check(launches == {"planar_dual": k, "planar_dewarp": k},
+              f"multi-device {name}: launches {launches}")
+        n_diff = sum(int((g.join().view(torch.int32)
+                          != r.view(torch.int32)).sum())
+                     for g, r in zip(got, out))
+        n_diff += int((gotw.join().view(torch.int32)
+                       != pipe.project_planar(planes, hdrs, poses=poses)[0]
+                       .view(torch.int32)).sum())
+        check(n_diff == 0, f"multi-device {name}: {n_diff} elements differ "
+              f"from project_planar")
+        ms = cuda_ms(lambda: sp.project(sp.shard(planes), sp.shard(hdrs)),
+                     iters=5, windows=3, warm=1)[0]
+        # map_source: chunks of 6, so the last of the 32 frames are padded
+        pk.reset_launches()
+        seen = []
+        for cf, xyz in sp.map_source(port.FrameReader(path, info), chunk=6):
+            check(xyz[0].shape == (6, 3, pipe.plan.h, pipe.plan.w),
+                  f"multi-device {name}: map_source shape {xyz[0].shape}")
+            joined = [x.join() for x in xyz]
+            for i, f in enumerate(cf):
+                seen.append(int(f))
+                for j, r in zip(joined, out):
+                    n_diff += int((j[i].view(torch.int32)
+                                   != r[int(f) - 1].view(torch.int32)).sum())
+            for i in range(cf.size, 6):     # the padding repeats the last
+                n_diff += int((joined[0][i] != joined[0][cf.size - 1])
+                              .sum())
+        chunks = -(-n_frames // 6)
+        launches = {c: v for c, v in pk.launches.items() if v}
+        check(seen == list(range(1, n_frames + 1)) and n_diff == 0
+              and launches == {"planar_dual": chunks * k},
+              f"multi-device {name}: map_source frames {seen}, {n_diff} "
+              f"elements differ, launches {launches}")
+        for c, v in (("planar_dual", k + chunks * k), ("planar_dewarp", k)):
+            launched[c] = launched.get(c, 0) + v
+        print(f"multi-device {name} ({k} shards): project bit-equal to "
+              f"project_planar ({n_frames} frames, dual, and with poses the "
+              f"first return), map_source {len(seen)} frames once in "
+              f"{chunks} chunks of 6 (the last padded), 0 elements differ; "
+              f"project {ms:.3f} ms a call of {n_frames} frames [{CARD}]")
+
+    # two sensors of one rig on a (sensor, frame) mesh
+    info2 = copy.deepcopy(info)
+    info2.beam_altitude_angles = list(np.linspace(21.5, -23.5,
+                                                  info.format
+                                                  .pixels_per_column))
+    pipes = [pipe, port.ScanPipeline(info2)]
+    frames = next(port.FrameReader(path, info).iter_chunks(4))[1]
+    frames = np.stack([frames, frames])
+    P_ = np.stack([random_poses(4, info.format.columns_per_frame, seed=s)
+                   for s in (21, 22)])
+    for name, mesh in (("one card", port.make_mesh_2d(1, 1)),
+                       ("the card twice",
+                        port.make_mesh_2d(2, 1, devices=[dev, dev]))):
+        step, luts = port.parallel.sharded_multi_sensor_step(pipes, mesh)
+        xyz, centroid = step(frames, luts, P_)
+        xyz = xyz.join()
+        total, count, n_diff = np.zeros(3), 0, 0
+        for s in range(2):
+            ref = pipes[s].batch(frames[s], torch.from_numpy(P_[s]))
+            n_diff += int((xyz[s].view(torch.int32)
+                           != ref["XYZ"].view(torch.int32)).sum())
+            total += ref["XYZ"].double().sum(dim=(0, 1, 2)).cpu().numpy()
+            count += int((ref["RANGE"].view(torch.int32) != 0).sum())
+        rel = float(np.abs(centroid.cpu().numpy() - total / count).max()
+                    / np.abs(total / count).max())
+        check(n_diff == 0 and rel <= 1e-5,
+              f"multi-sensor step on {name}: {n_diff} elements differ from "
+              f"ScanPipeline.batch, centroid {rel:.3g} from the f64 sum")
+        print(f"multi-sensor step on {name}: 2 sensors x 4 frames, XYZ 0 "
+              f"elements from ScanPipeline.batch, centroid within "
+              f"{rel:.3g} (rtol 1e-5) of the float64 sum")
+    clouds = xyz.reshape(2, -1, 3)
+    ext = np.stack([random_poses(1, 1, seed=s)[0, 0] for s in (31, 32)])
+    got = port.parallel.fuse_multi_sensor_clouds(
+        port.make_mesh(axis_name="sensor", devices=[dev, dev]), clouds, ext)
+    want = port.parallel.fuse_multi_sensor_clouds(
+        port.make_mesh(axis_name="sensor", devices=["cpu", "cpu"]),
+        clouds.cpu(), ext)
+    got = got.cpu().numpy()
+    want = want.numpy()
+    c64 = clouds.cpu().numpy()
+    mag = np.concatenate([np.abs(c64[i]) @ np.abs(ext[i, :3, :3]).T
+                          + np.abs(ext[i, :3, 3]) for i in range(2)])
+    err = np.abs(got - want)
+    check(got.shape == want.shape
+          and (err <= 2 * np.spacing(mag.astype(np.float32))).all(),
+          f"fuse_multi_sensor_clouds: card and CPU differ by {err.max()}")
+    print(f"fuse_multi_sensor_clouds on the card twice: {got.shape[0]} "
+          f"points, {int((err > 0).sum())} elements differ from the CPU, "
+          f"max |d| {err.max():.3g} m (within 2 f32 ulp of the terms)")
+    return launched
 
 
 if __name__ == "__main__":

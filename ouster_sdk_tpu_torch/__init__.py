@@ -60,6 +60,19 @@ loopback (the tests' and the chip run's sensor), and
 io.frames.PlanarStreamAssembler turns a live packet stream into the
 word-planar frames ScanPipeline.decode_planar / project_planar take.
 
+Wire-codec replay: io.frames.FrameReader.iter_packed_chunks (dense
+nbits-a-pixel bitstreams) or iter_bp64_chunks (BP64 delta/bit-packed range
+streams, ops.bp64) ship fewer bytes than the word planes; fused_pipelined
+packs a chunk into one buffer on the staging thread (ChunkFuser), the
+device splits it back (ops.packed.unfuse_words), decodes the ranges
+(project_packed_batched, project_bp64_batched) and projects them through
+the planar kernel (ops.planar_kernels.project_ranges_batched).
+
+Multi-device: parallel.make_mesh lists the devices, ScanPipeline.sharded
+splits a batch over them (parallel.ShardedScanPipeline: the planar kernel
+on each device's shard), and sharded_multi_sensor_step /
+fuse_multi_sensor_clouds run per-sensor work on a 2-D mesh.
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
@@ -86,7 +99,8 @@ from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
                                LiveDeviceBatcher, OsfDeviceProjector,
                                make_osf_projector, supports_device_decode,
                                supports_osf_device_projection)
-from .io.frames import FrameReader, PlanarBatch, PlanarStreamAssembler
+from .io.frames import (ChunkFuser, FrameReader, PlanarBatch,
+                        PlanarStreamAssembler, fused_pipelined)
 from .io.osf import OsfScanSource
 from .io.pcap import PcapReader, PcapWriter
 from .io.pcap_scan_source import PcapScanSource
@@ -97,18 +111,21 @@ from .io.sources import (Collator, IoType, LidarScanSet, MultiScanSource,
                          extension_from_io_type, io_type,
                          io_type_from_extension, open_packet_source,
                          open_source, populate_extrinsics)
+from .ops.bp64 import bp64_encode_numpy, project_bp64_batched
 from .ops.destagger import destagger, destagger_torch, stagger
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
 from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
                                   unpack_project_lutfree,
                                   unpack_project_lutfree_dd,
                                   unpack_project_lutfree_planar)
+from .ops.packed import (packed_range_fields, project_packed_batched,
+                         unfuse_words, unpack_bits)
 from .ops.packet_format import PacketFormat, PacketWriter
 from .ops.packet_kernels import (lut_planes, unpack_project,
                                  unpack_project_packet,
                                  unpack_project_packet_batched)
 from .ops.planar_kernels import (PlanarLut, launches, project_ranges,
-                                 reset_launches,
+                                 project_ranges_batched, reset_launches,
                                  unpack_project_planar_batched, words_tensor)
 from .ops.pose import (dewarp, dewarp_np, exp_pose, interp_pose,
                        interp_pose_np, interp_trajectory, log_pose,
@@ -119,6 +136,7 @@ from .ops.unpack import (decode_frame, decode_frame_batch,
 from .ops.xyzlut import (XYZLutDevice, cartesian, cartesian_dd,
                          cartesian_f32, make_xyz_lut, make_xyz_lut_float,
                          to_device_lut)
+from .parallel import ShardedScanPipeline, make_mesh, make_mesh_2d
 from .sensor.http import (LONG_HTTP_REQUEST_TIMEOUT_SECONDS,
                           SHORT_HTTP_REQUEST_TIMEOUT_SECONDS, SensorHttp)
 from .state import lidar_scan_from_jax, lidar_scan_from_numpy
@@ -176,14 +194,15 @@ XYZLutFloat = XYZLutFloatFactory
 
 
 __all__ = [
-    "cartesian", "cartesian_dd", "cartesian_f32", "ChanField",
-    "ChanFieldType", "collate", "collate_scans", "Collator", "DataFormat",
+    "bp64_encode_numpy", "cartesian", "cartesian_dd", "cartesian_f32",
+    "ChanField", "ChanFieldType", "ChunkFuser", "collate", "collate_scans", "Collator", "DataFormat",
     "decode_frame", "decode_frame_batch", "decode_frame_planar",
     "decode_frame_planar_batch", "default_device", "default_error_handler",
     "default_sensor_info", "destagger", "destagger_torch",
     "DeviceScanIndex", "DeviceScanIterator", "dewarp", "dewarp_np",
     "exp_pose", "extension_from_io_type", "FactorTables", "FieldClass",
     "FieldType", "frame_words_from_packets", "FrameReader",
+    "fused_pipelined",
     "get_field_types", "HeaderType", "ImuPacket", "init_logger",
     "interp_pose", "interp_pose_np", "interp_trajectory", "io_type",
     "io_type_from_extension", "IoType", "launches", "lidar_scan_from_jax",
@@ -191,19 +210,23 @@ __all__ = [
     "LidarScanSet", "LiveDeviceBatcher", "log_pose",
     "logging_error_handler", "LONG_HTTP_REQUEST_TIMEOUT_SECONDS",
     "lut_planes", "lutfree_supported",
-    "make_decode_plan", "make_osf_projector", "make_xyz_lut",
+    "make_decode_plan", "make_mesh", "make_mesh_2d",
+    "make_osf_projector", "make_xyz_lut",
     "make_xyz_lut_float", "MultiScanSource", "open_packet_source",
     "open_source", "OsfDeviceProjector", "OsfScanSource", "OusterIoType",
-    "Packet", "PacketFormat", "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
+    "Packet", "packed_range_fields", "PacketFormat", "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
     "PcapScanSource", "PcapWriter", "PipelineConfig", "PlanarBatch",
     "PlanarLut", "PlanarStreamAssembler", "populate_extrinsics",
-    "project_ranges", "reset_launches",
+    "project_bp64_batched", "project_packed_batched", "project_ranges",
+    "project_ranges_batched", "reset_launches",
     "resolve_field_types", "ScanBatcher", "ScanPipeline", "ScanSource",
     "sensor_info_from_metadata", "SensorHttp", "SensorInfo", "Severity",
+    "ShardedScanPipeline",
     "SHORT_HTTP_REQUEST_TIMEOUT_SECONDS", "Singler",
     "Slicer", "SourceURLException", "stagger", "supports_device_decode",
     "supports_osf_device_projection", "to_device_lut", "transform",
-    "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unpack_project",
+    "transform_np", "UDPProfileIMU", "UDPProfileLidar", "unfuse_words",
+    "unpack_bits", "unpack_project",
     "unpack_project_lutfree", "unpack_project_lutfree_dd",
     "unpack_project_lutfree_planar", "unpack_project_packet",
     "unpack_project_packet_batched", "unpack_project_planar_batched",

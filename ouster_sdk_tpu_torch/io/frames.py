@@ -31,6 +31,13 @@ are also the oracle the native staging is tested against.
 
 PlanarStreamAssembler is the live twin of word-planar staging: packets
 pushed one by one, frames released word-planar at each frame-id boundary.
+
+The wire stagings ship fewer bytes to the device than the word planes:
+iter_packed_chunks packs each range field's nbits bits a pixel into dense
+bitstreams (native library only), iter_bp64_chunks codes them with BP64
+(ops/bp64.py; the native encoder, or numpy without g++). ChunkFuser packs
+a chunk's arrays into one u32 buffer for a single host->device copy, and
+fused_pipelined runs staging and packing on a background thread.
 """
 
 from __future__ import annotations
@@ -130,6 +137,76 @@ def _pipelined(make_iter, depth: int, on_close=None) -> Iterator:
             raise err[0]
 
     return consume()
+
+
+class ChunkFuser:
+    """Pack one staged chunk's arrays into ONE pooled contiguous u32 buffer,
+    so that the consumer makes a single host->device copy a chunk (a
+    strided pool view, such as the BP64 payload's `pay[:m, :ship]`, is
+    copied into place here). The pack is a few host memcpys, run on the
+    staging thread by fused_pipelined. Device twin:
+    ops.packed.unfuse_words.
+
+    Layouts are (offset_words, shape, dtype) tuples, hashable. Sub-word
+    arrays (u8, u16) pad to a word multiple with zeros. The buffers form a
+    ring of `pool_depth` (at least 2): a returned buffer stays valid for
+    pool_depth - 1 further packs."""
+
+    def __init__(self, pool_depth: int = 4):
+        self._pools: List[np.ndarray] = []
+        self._depth = max(2, pool_depth)
+        self._flip = 0
+        self._words = 0
+
+    @staticmethod
+    def layout_of(arrays) -> Tuple[Tuple[int, Tuple[int, ...], str], ...]:
+        out = []
+        off = 0
+        for a in arrays:
+            nbytes = int(np.prod(a.shape)) * a.dtype.itemsize
+            out.append((off, tuple(a.shape), a.dtype.name))
+            off += (nbytes + 3) // 4
+        return tuple(out)
+
+    def pack(self, arrays) -> Tuple[np.ndarray,
+                                    Tuple[Tuple[int, Tuple[int, ...], str],
+                                          ...]]:
+        layout = self.layout_of(arrays)
+        total = layout[-1][0] + (
+            int(np.prod(layout[-1][1]))
+            * np.dtype(layout[-1][2]).itemsize + 3) // 4
+        if total > self._words or not self._pools:
+            self._words = total
+            self._pools = [np.zeros(total, np.uint32)
+                           for _ in range(self._depth)]
+            self._flip = 0
+        buf = self._pools[self._flip]
+        self._flip = (self._flip + 1) % len(self._pools)
+        for (off, _, _), a in zip(layout, arrays):
+            flat = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+            dst = buf[off:off + (flat.size + 3) // 4].view(np.uint8)
+            dst[:flat.size] = flat
+            if flat.size % 4:
+                dst[flat.size:] = 0
+        return buf[:total], layout
+
+
+def fused_pipelined(make_iter, select, depth: int = 2) -> Iterator:
+    """Pipelined staging with the ChunkFuser on the producer's side:
+    `select(item) -> (meta, arrays)`; yields (meta, fused u32, layout).
+    Staging and pack run on the staging thread, overlapped with the
+    consumer's copy and device work. The ring holds depth + 2 buffers:
+    a yielded buffer stays valid until the consumer takes the next item,
+    so copy it to the device first."""
+    fuser = ChunkFuser(pool_depth=depth + 2)
+
+    def gen():
+        for item in make_iter():
+            meta, arrays = select(item)
+            fused, layout = fuser.pack(arrays)
+            yield meta, fused, layout
+
+    return _pipelined(gen, depth)
 
 
 def pcap_scan(path: str) -> Tuple[np.ndarray, np.ndarray, np.ndarray,
@@ -379,6 +456,8 @@ class FrameReader:
         self.id_error_count = 0
         # the cached capture scan and the freelists of staging pools
         self._pools: dict = {}
+        # BP64 ship widths, locked per (fields, nbits) (iter_bp64_chunks)
+        self._bp64_ship: dict = {}
 
     # -- the capture scan ---------------------------------------------------
     def _scan(self):
@@ -779,6 +858,198 @@ class FrameReader:
             pos += consumed
             yield (fid_out[:nf].copy(), planes[:nf], hdrs[:nf],
                    ts_out[:nf].copy())
+
+
+    def iter_planar_chunks_pipelined(
+            self, chunk: int = 8, words: Optional[Tuple[int, ...]] = None,
+            depth: int = 2) -> Iterator[Tuple[np.ndarray, np.ndarray,
+                                              np.ndarray, np.ndarray]]:
+        """iter_planar_chunks staged on a background thread, up to `depth`
+        chunks ahead of the consumer (the native grouper releases the
+        interpreter lock, so staging overlaps the consumer's copy and
+        device work)."""
+        return _pipelined(lambda: self.iter_planar_chunks(chunk, words),
+                          depth)
+
+    # -- wire stagings --------------------------------------------------------
+    def iter_packed_chunks(self, chunk: int = 8,
+                           fields: Tuple[Tuple[int, int], ...] = (),
+                           nbits: int = 19,
+                           pool_depth: int = 2) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+        """Bit-packed staging: yield (frame_ids (m,) i64, packed (m,
+        n_fields, h, w * nbits // 32) u32, col_hdrs (m, chw, w) u32,
+        host_ts (m,) u64), each selected field's nbits bits a pixel packed
+        into a dense LSB-first bitstream a pixel row (native
+        group_frames_packed): nbits / 32 of the word-planar bytes. `fields`
+        lists (pixel_word, bit_offset) pairs (ops.packed.
+        packed_range_fields); decode with ops.packed.project_packed_batched.
+
+        Raises RuntimeError where the staging does not apply, so that the
+        caller takes iter_planar_chunks: a profile whose status is not in
+        the column header, w % 32 or cpp * nbits % 8 not zero, a field
+        crossing a word, no native library, no lidar datagram, or a packet
+        whose first measurement id is not a multiple of columns-per-packet.
+        The yielded arrays are views of `pool_depth` pooled buffers: valid
+        for pool_depth - 1 further iterations."""
+        plan = self.plan
+        if plan.status_word >= plan.chw:
+            raise RuntimeError("packed staging supports eUDP only")
+        if not fields:
+            raise ValueError(
+                "packed staging needs a non-empty `fields` list of "
+                "(pixel_word, bit_offset) pairs")
+        if plan.w % 32 or (plan.cpp * nbits) % 8:
+            raise RuntimeError("packed staging needs w%32==0 and "
+                               "cpp*nbits%8==0")
+        for _, bit in fields:
+            if bit + nbits > 32:
+                raise RuntimeError("packed field crosses a word boundary")
+        if native.get_lib() is None:
+            raise RuntimeError("packed staging needs the native library")
+        payloads, offsets, sizes, ts, ports, _ = self._scan()
+        lidar = self._lidar_mask(sizes, ports)
+        if not lidar.any():
+            raise RuntimeError("no lidar datagrams for packed staging")
+        offs, tss = offsets[lidar], ts[lidar]
+        if (self._vec_first_mid(payloads, offs) % plan.cpp).any():
+            raise RuntimeError("capture has non-aligned packets")
+
+        fid_byte, fid_shift, fid_mask = _frame_id_field(self.pf)
+        wp = plan.w * nbits // 32
+        key = ("packed", chunk, fields, nbits, pool_depth)
+        if key not in self._pools:
+            self._pools[key] = [
+                (np.zeros((chunk, len(fields), plan.h, wp), np.uint32),
+                 np.zeros((chunk, plan.chw, plan.w), np.uint32))
+                for _ in range(pool_depth)]
+        pools = self._pools[key]
+        fw = np.asarray([f[0] for f in fields], np.int64)
+        fb = np.asarray([f[1] for f in fields], np.int64)
+        fid_out = np.zeros(chunk, np.int64)
+        ts_out = np.zeros(chunk, np.uint64)
+        released = np.full(1, -1, np.int64)
+        pos, flip = 0, 0
+        while pos < offs.size:
+            planes, hdrs = pools[flip]
+            flip = (flip + 1) % len(pools)
+            consumed, nf = native.group_frames_packed(
+                payloads, offs[pos:], tss[pos:],
+                self.pf.lidar_packet_size, fid_byte, fid_shift, fid_mask,
+                self.pf.packet_header_size, self.pf.col_size,
+                self.pf.col_header_size, plan.mid_word * 4, plan.cpp,
+                plan.h, plan.pw, plan.w, fw, fb, nbits, planes, hdrs,
+                fid_out, ts_out, io_released=released)
+            if nf == 0:
+                break
+            pos += consumed
+            yield (fid_out[:nf].copy(), planes[:nf], hdrs[:nf],
+                   ts_out[:nf].copy())
+
+    def iter_bp64_chunks(self, chunk: int = 8,
+                         fields: Tuple[Tuple[int, int], ...] = (),
+                         nbits: int = 19,
+                         pool_depth: int = 2) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                  np.ndarray, np.ndarray]]:
+        """Compressed staging: yield (frame_ids (m,) i64, payload (m, P)
+        u32, widths (m, n_fields, h, w // 64) u8, anchors (m, n_fields, h,
+        w // 64) u32, col_hdrs (m, chw, w) u32, host_ts (m,) u64), each
+        selected field BP64-coded (ops/bp64.py) by the native encoder, or
+        by bp64_encode_numpy where the library is not built. Decode with
+        ops.bp64.project_bp64_batched.
+
+        P, the shipped payload width, is the first chunk's need plus a
+        quarter, rounded up to 1024 words, and grows only when a later
+        chunk needs more; it is kept per (fields, nbits) across
+        iterations of this reader, so that shapes stay stable between
+        replay passes. Each frame's payload is followed by two zero slack
+        words; the words past them are never read by the decode. The
+        yielded arrays are views of `pool_depth` pooled buffers."""
+        plan = self.plan
+        if plan.w % 64:
+            raise RuntimeError("bp64 staging needs w % 64 == 0")
+        if not 1 <= nbits <= 30:
+            # 5-bit block widths: zigzag deltas need up to nbits+1 bits
+            raise ValueError("bp64 staging supports 1 <= nbits <= 30")
+        if not fields:
+            raise ValueError(
+                "bp64 staging needs a non-empty `fields` list of "
+                "(pixel_word, bit_offset) pairs")
+        words = tuple(f[0] for f in fields)
+        bits = np.asarray([f[1] for f in fields], np.int64)
+        F = len(fields)
+        nb = plan.w // 64
+        # capacity: the worst case (white noise), so the encoder can never
+        # run out; the shipped slice is the coded size
+        cap = F * plan.h * nb * (2 * (nbits + 1) + 2) + 2
+        key = ("bp64", chunk, fields, nbits, pool_depth)
+        if key not in self._pools:
+            self._pools[key] = [
+                (np.zeros((chunk, cap), np.uint32),
+                 np.zeros((chunk, F, plan.h, nb), np.uint8),
+                 np.zeros((chunk, F, plan.h, nb), np.uint32))
+                for _ in range(pool_depth)]
+        pools = self._pools[key]
+        vmask = np.uint32((1 << nbits) - 1)
+        ship_key = (fields, nbits)
+        ship: int = self._bp64_ship.get(ship_key, 0)
+        flip = 0
+        for fids, planes, hdrs, ts in self.iter_planar_chunks(
+                chunk, words=words):
+            pay, wid, anc = pools[flip]
+            flip = (flip + 1) % len(pools)
+            m = fids.size
+            max_used = 0
+            for i in range(m):
+                used = native.bp64_encode(
+                    np.ascontiguousarray(planes[i]), bits, nbits,
+                    pay[i], wid[i].reshape(-1), anc[i].reshape(-1))
+                if used == -2:          # no native library: numpy encoder
+                    from ..ops.bp64 import bp64_encode_numpy
+
+                    vals = (planes[i] >> bits[:, None, None].astype(
+                        np.uint32)) & vmask
+                    p, w_, a_ = bp64_encode_numpy(vals, nbits)
+                    used = p.size
+                    pay[i, :used] = p
+                    wid[i] = w_
+                    anc[i] = a_
+                elif used < 0:
+                    raise RuntimeError("bp64 encoder overflow (capacity "
+                                       "is sized for the worst case)")
+                pay[i, used:used + 2] = 0     # the decode's slack words
+                max_used = max(max_used, used)
+            if max_used + 2 > ship:           # grow only: stable shapes
+                want = (max_used + 2) * 5 // 4
+                ship = min((want + 1023) // 1024 * 1024, cap)
+                self._bp64_ship[ship_key] = ship
+            yield (fids, pay[:m, :ship], wid[:m], anc[:m], hdrs[:m], ts)
+
+    def iter_packed_chunks_pipelined(
+            self, chunk: int = 8, fields: Tuple[Tuple[int, int], ...] = (),
+            nbits: int = 19, depth: int = 2) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
+        """iter_packed_chunks staged on a background thread (pool ring of
+        depth + 2, so a yielded view outlives the chunks queued behind
+        it)."""
+        return _pipelined(
+            lambda: self.iter_packed_chunks(chunk, fields, nbits,
+                                            pool_depth=depth + 2),
+            depth)
+
+    def iter_bp64_chunks_pipelined(
+            self, chunk: int = 8, fields: Tuple[Tuple[int, int], ...] = (),
+            nbits: int = 19, depth: int = 2) -> Iterator[
+            Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray,
+                  np.ndarray, np.ndarray]]:
+        """iter_bp64_chunks staged on a background thread (the native
+        encoder releases the interpreter lock, so the coding overlaps the
+        consumer's copy and device work)."""
+        return _pipelined(
+            lambda: self.iter_bp64_chunks(chunk, fields, nbits,
+                                          pool_depth=depth + 2),
+            depth)
 
 
 class PlanarStreamAssembler:

@@ -164,6 +164,19 @@ class ScanPipeline:
             self.planar_lut.stack, self.plan, precision=self.precision,
             dual=self.dual, poses=poses, words=words)
 
+    def sharded(self, mesh=None, *, axis_name: Optional[str] = None,
+                words: Optional[Tuple[int, ...]] = None):
+        """Multi-device face of the planar projection: a ShardedScanPipeline
+        running project_planar's kernel on each device's shard of a batch
+        split on its leading axis over `mesh` (default: a 1-D mesh of every
+        CUDA device; raises without CUDA). See parallel/sharding.py."""
+        from ..parallel.sharding import ShardedScanPipeline, make_mesh
+
+        if mesh is None:
+            mesh = make_mesh()
+        return ShardedScanPipeline(self, mesh, axis_name=axis_name,
+                                   words=words)
+
     def decode_planar(self, planes: Words, col_hdrs: Words
                       ) -> Dict[str, torch.Tensor]:
         """Full-field decode from planar staging; batched when the inputs

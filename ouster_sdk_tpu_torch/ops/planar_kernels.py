@@ -25,7 +25,11 @@ poses, contiguous, a wrapper call launches the kernel and nothing else.
 
 `project_ranges` is the same projection for bare range images (no words to
 unpack, every column valid): `_proj_lean` on the CPU, the same kernel on
-the card.
+the card. `project_ranges_batched` is the epilogue of the wire stagings
+(ops/packed.py, ops/bp64.py): range images decoded on the device from
+packed or BP64 words, masked by the column status words, projected by the
+same kernel, then optionally dewarped in the rounding order of
+ops/pose.rotate_translate.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .pose import rotate_translate
 from .precision import fma_f32, split_f64_array
 from .unpack import DecodePlan, FieldPlan, _bits, _u32
 from .xyzlut import XYZLut
@@ -361,6 +366,115 @@ def project_ranges(rngs: torch.Tensor, lut_stack: torch.Tensor,
     if B:
         launches["planar"] += 1
     return out[0]
+
+
+#: The second range image of a dual-return pair, at plane 1.
+_RANGE2_WORD = FieldPlan(name="RANGE2", word=1, bit=0, size=32, upshift=0,
+                         out_dtype="uint32")
+
+
+def _as_int32(v: torch.Tensor) -> torch.Tensor:
+    """int64 holding a u32 value -> the int32 word with the same bits."""
+    return (v - ((v & 0x80000000) << 1)).to(torch.int32)
+
+
+def _dewarp_ranges(xyz: Tuple[torch.Tensor, ...],
+                   masked: Tuple[torch.Tensor, ...],
+                   poses: Optional[torch.Tensor]):
+    """Per-column SE(3) of (B, 3, h, w) XYZ in the rounding order of
+    rotate_translate (the JAX package's `einsum("bwij,bjhw->bihw") + t`),
+    with the pixels whose masked range is zero kept at the origin. Both
+    returns share the column's pose (ref: pose_util.h:44-67)."""
+    if poses is None:
+        return xyz
+    if poses.ndim == 3:
+        poses = poses[None]
+    poses = poses.to(device=xyz[0].device, dtype=torch.float32)
+    rot = poses[:, None, :, :3, :3]                 # (B, 1, w, 3, 3)
+    trans = poses[:, None, :, :3, 3]
+    zero = torch.zeros((), dtype=torch.float32, device=xyz[0].device)
+    return tuple(
+        torch.where((r != 0)[:, None],
+                    rotate_translate(rot, trans, x.permute(0, 2, 3, 1))
+                    .permute(0, 3, 1, 2), zero)
+        for x, r in zip(xyz, masked))
+
+
+def _masked(ranges, col_hdrs: torch.Tensor, plan: DecodePlan
+            ) -> Tuple[torch.Tensor, ...]:
+    """The range images with the columns whose status bit is clear
+    zeroed."""
+    vm = status_valid_mask_batched(col_hdrs, plan)
+    zero = torch.zeros((), dtype=torch.int64, device=col_hdrs.device)
+    return tuple(torch.where(vm, r, zero) for r in ranges)
+
+
+def project_ranges_batched_plain(ranges, col_hdrs: torch.Tensor,
+                                 lut_stack: torch.Tensor, plan: DecodePlan,
+                                 *, precision: str = "dd",
+                                 poses: Optional[torch.Tensor] = None):
+    """The plain PyTorch version of project_ranges_batched: same arguments
+    and results, on any device."""
+    masked = _masked(ranges, col_hdrs, plan)
+    xyz = tuple(_proj_lean(r, lut_stack, precision=precision)
+                for r in masked)
+    out = _dewarp_ranges(xyz, masked, poses)
+    return out if len(out) == 2 else out[0]
+
+
+def project_ranges_batched(ranges, col_hdrs: torch.Tensor,
+                           lut_stack: torch.Tensor, plan: DecodePlan, *,
+                           precision: str = "dd",
+                           poses: Optional[torch.Tensor] = None):
+    """The shared epilogue of the wire stagings: one or two range images
+    (B, h, w), int64 holding u32 values (upshifts applied), whose columns
+    the status words of col_hdrs (B, schw, w) mask as the planar path
+    masks them, -> XYZ (B, 3, h, w) f32, or a pair for two images. With
+    poses (B, w, 4, 4) the XYZ is dewarped per column after the
+    projection, in rotate_translate's rounding order, and the pixels whose
+    masked range is zero stay at the origin: the order of the JAX
+    package's `project_ranges_batched` (ops/pallas_kernels.py:566), not
+    the planar kernel's fused dewarp, which rounds otherwise.
+
+    CPU tensors take the plain version. CUDA tensors launch the planar
+    kernel once, on the images stacked as the planes of (B, n, h, w)
+    frames (range k at word k, bit 0, 32 bits) with the real col headers,
+    so the kernel masks the columns; the launch counts under
+    launches["planar"], or launches["planar_dual"] for a pair (the
+    instantiation that runs). The dewarp is plain PyTorch on the card.
+    """
+    if precision not in ("dd", "f32"):
+        raise ValueError(f"precision must be 'dd' or 'f32', not "
+                         f"{precision!r}")
+    ranges = tuple(ranges)
+    if len(ranges) not in (1, 2):
+        raise ValueError(f"one or two range images, not {len(ranges)}")
+    device = ranges[0].device
+    if device.type == "cpu":
+        return project_ranges_batched_plain(ranges, col_hdrs, lut_stack,
+                                            plan, precision=precision,
+                                            poses=poses)
+    if device.type != "cuda":
+        raise ValueError(f"range projection runs on cpu or cuda tensors, "
+                         f"not {device.type}")
+    from ..kernels.planar_project import launch
+
+    if col_hdrs.dtype == torch.uint32:
+        col_hdrs = col_hdrs.view(torch.int32)
+    B, h, w = ranges[0].shape
+    n = len(ranges)
+    planes = torch.stack([_as_int32(r) for r in ranges], dim=1)
+    rplan = _RangeImagePlan(h, w, schw=col_hdrs.shape[1],
+                            staged_status_word=plan.staged_status_word,
+                            status_bit=plan.status_bit)
+    idx = tuple(range(n))
+    xyz = launch(planes, col_hdrs.contiguous(), lut_stack, None, rplan,
+                 (_RANGE_WORD, _RANGE2_WORD)[:n], idx, precision)
+    if B:
+        launches[_case(rplan, n == 2, False, n, idx)] += 1
+    if poses is not None:
+        xyz = _dewarp_ranges(xyz, _masked(ranges, col_hdrs, plan), poses)
+    return xyz if n == 2 else xyz[0]
 
 
 def words_tensor(words: np.ndarray, device) -> torch.Tensor:

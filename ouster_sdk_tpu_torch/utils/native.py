@@ -19,9 +19,11 @@ or load that starts and fails raises with the compiler's output. Every
 wrapper checks the dtype, shape and C-contiguity of each array it hands to
 C before the call, and counts its calls in `calls`.
 
-The library also exports onat_group_frames_packed, onat_bp64_encode,
-onat_stage_frame and onat_crc64_check_batch; they are bound with their
-signatures and have no wrapper yet.
+The wire stagings of io.frames run through it too: the bit-packed
+grouper (group_frames_packed) and the BP64 encoder (bp64_encode). The
+library also exports onat_stage_frame and onat_crc64_check_batch; they
+are bound with their signatures and have no wrapper: no path of the
+port stages through them.
 """
 
 from __future__ import annotations
@@ -47,7 +49,8 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 
 #: calls into the library, by wrapper (reset with reset_calls)
 calls: Dict[str, int] = {"crc64": 0, "pcap_scan": 0, "group_frames": 0,
-                         "group_frames_planar": 0, "png_unfilter": 0,
+                         "group_frames_planar": 0, "group_frames_packed": 0,
+                         "bp64_encode": 0, "png_unfilter": 0,
                          "udp_recv_batch": 0}
 #: seconds the build took in this process (None: loaded from disk, or not
 #: loaded yet)
@@ -435,3 +438,97 @@ def udp_recv_batch(sock, stride: int, max_msgs: int = 256,
     if n <= 0:
         return None
     return buf[:n], sizes[:n], int(ts[0])
+
+
+def group_frames_packed(payloads: np.ndarray, offsets: np.ndarray,
+                        ts: Optional[np.ndarray], pkt_bytes: int,
+                        fid_byte: int, fid_shift: int, fid_mask: int,
+                        hw_bytes: int, cw_bytes: int, chw_bytes: int,
+                        mid_byte_in_col: int, cpp: int, h: int, pw: int,
+                        w: int, field_words: np.ndarray,
+                        field_bits: np.ndarray, nbits: int,
+                        out_planes: np.ndarray, out_colhdr: np.ndarray,
+                        out_fids: np.ndarray, out_ts: np.ndarray,
+                        io_released: Optional[np.ndarray] = None
+                        ) -> Optional[Tuple[int, int]]:
+    """Bit-packed grouping of the packets at `offsets`: out_planes
+    (max_frames, n_fields, h, w * nbits // 32) u32 holds, per selected
+    field (field_words[k], field_bits[k]) and pixel row, a dense LSB-first
+    bitstream of each pixel's nbits bits; out_colhdr (max_frames, chw, w)
+    u32 the column headers. Grouping, drops and the resume contract are
+    group_frames_planar's. The caller checks that every packet's first
+    measurement id is a multiple of cpp (a packet that is not is skipped
+    here). Returns (packets consumed, frames emitted), or None without the
+    library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    payloads, offsets = _packets(payloads, offsets, pkt_bytes)
+    ts = _timestamps(ts, offsets.size)
+    _frame_id_layout(fid_byte, pkt_bytes)
+    if (hw_bytes % 4 or cw_bytes % 4 or chw_bytes % 4
+            or hw_bytes + cpp * cw_bytes > pkt_bytes
+            or chw_bytes + h * pw * 4 > cw_bytes
+            or not 0 <= mid_byte_in_col <= chw_bytes - 2 or w % cpp):
+        raise ValueError("column geometry does not fit the packet")
+    if not 1 <= nbits <= 32 or w % 32 or (cpp * nbits) % 8:
+        raise ValueError(f"packed staging needs 1 <= nbits <= 32, w % 32 "
+                         f"== 0 and cpp * nbits % 8 == 0 (nbits {nbits}, "
+                         f"w {w}, cpp {cpp})")
+    field_words = np.ascontiguousarray(field_words, np.int64)
+    field_bits = np.ascontiguousarray(field_bits, np.int64)
+    if (field_words.ndim != 1 or field_words.size == 0
+            or field_bits.shape != field_words.shape
+            or field_words.min() < 0 or field_words.max() >= pw
+            or field_bits.min() < 0 or field_bits.max() + nbits > 32):
+        raise ValueError(f"fields {field_words}/{field_bits} outside the "
+                         f"{pw} pixel words or crossing a word boundary")
+    out_planes = _arr(out_planes, "out_planes", np.uint32,
+                      (None, field_words.size, h, w * nbits // 32))
+    m = out_planes.shape[0]
+    out_colhdr = _arr(out_colhdr, "out_colhdr", np.uint32,
+                      (m, chw_bytes // 4, w))
+    out_fids = _arr(out_fids, "out_fids", np.int64)
+    out_ts = _arr(out_ts, "out_ts", np.uint64)
+    if out_fids.size < m or out_ts.size < m:
+        raise ValueError("out_fids / out_ts shorter than out_planes")
+    io_released = _released(io_released)
+    nframes = np.zeros(1, dtype=np.int64)
+    calls["group_frames_packed"] += 1
+    consumed = lib.onat_group_frames_packed(
+        _ptr(payloads), _ptr(offsets), _ptr(ts), offsets.size, pkt_bytes,
+        fid_byte, fid_shift, fid_mask, hw_bytes, cw_bytes, chw_bytes,
+        mid_byte_in_col, cpp, h, pw, w, _ptr(field_words), _ptr(field_bits),
+        field_words.size, nbits, _ptr(out_planes), _ptr(out_colhdr),
+        _ptr(out_fids), _ptr(out_ts), m, _ptr(nframes), _ptr(io_released))
+    return int(consumed), int(nframes[0])
+
+
+def bp64_encode(planes: np.ndarray, field_bits: np.ndarray, nbits: int,
+                payload: np.ndarray, widths: np.ndarray,
+                anchors: np.ndarray) -> int:
+    """BP64-encode one frame's selected word planes (F, h, w) u32, field k
+    being (planes[k] >> field_bits[k]) & (2**nbits - 1), into `payload`
+    (u32, its length the capacity); widths u8 and anchors u32 are flat
+    (F * h * (w // 64),). The format is ops/bp64.py's. Returns the payload
+    words written, -1 when the capacity is too small (nothing past it is
+    written), or -2 without the library."""
+    lib = get_lib()
+    if lib is None:
+        return -2
+    planes = _arr(planes, "planes", np.uint32, (None, None, None))
+    F, h, w = planes.shape
+    if w % 64 or not 1 <= nbits <= 30:
+        raise ValueError(f"bp64 needs w % 64 == 0 and 1 <= nbits <= 30 "
+                         f"(w {w}, nbits {nbits})")
+    fb = np.ascontiguousarray(field_bits, np.int64)
+    if fb.shape != (F,) or (F and (fb.min() < 0 or fb.max() > 31)):
+        raise ValueError(f"field_bits {fb}: expected {F} bit offsets in "
+                         f"0..31")
+    payload = _arr(payload, "payload", np.uint32, (None,))
+    widths = _arr(widths, "widths", np.uint8, (F * h * (w // 64),))
+    anchors = _arr(anchors, "anchors", np.uint32, (F * h * (w // 64),))
+    calls["bp64_encode"] += 1
+    return int(lib.onat_bp64_encode(
+        _ptr(planes), F, h, w, _ptr(fb), nbits, _ptr(payload), payload.size,
+        _ptr(widths), _ptr(anchors)))

@@ -23,7 +23,11 @@ frame), bit-exact against `_proj_lean`, that XYZLut serves. Live sensors:
 the port's emulator on loopback -> open_source on CUDA gives scans whose
 fields, touched on the main thread, equal the ScanBatcher's over the
 packets received; the planar ingest launches planar_project once a
-released frame."""
+released frame. Wire stagings: unpack_bits and the BP64 decode on the card
+equal the CPU's, project_packed_batched / project_bp64_batched launch
+planar_project once a call with XYZ bit-equal to the planar path (and with
+poses to the CPU's plain route); ShardedScanPipeline.project on a mesh of
+the one card launches once a shard, bit-equal to project_planar."""
 
 import numpy as np
 import pytest
@@ -831,3 +835,93 @@ def test_live_planar_ingest_launches_the_kernel(cuda, profile):
     launched = cs._live_planar_ingest(torch, pt, pk, cuda, info, frames)
     case = "planar_dual" if profile.endswith("DUAL") else "planar"
     assert list(launched) == [case] and launched[case] >= 1
+
+
+# -- wire stagings and the multi-device face on the card ------------------------
+
+@pytest.mark.cuda
+def test_wire_decodes_on_the_card_equal_the_cpu(cuda):
+    from ouster_sdk_tpu_torch.ops import bp64, packed
+
+    rng = np.random.default_rng(7)
+    for nbits in (1, 15, 19, 30):
+        stream = rng.integers(0, 1 << 32, (3, 4, 64 * nbits // 32),
+                              dtype=np.uint32).view(np.int32)
+        t = torch.from_numpy(stream)
+        assert torch.equal(packed.unpack_bits(t.to(cuda), nbits, 64).cpu(),
+                           packed.unpack_bits(t, nbits, 64))
+    v = rng.integers(0, 1 << 19, (2, 32, 512), dtype=np.uint32)
+    v[rng.random(v.shape) < 0.1] = 0
+    v[0, 3] = 1234                               # constant rows
+    pay, wid, anc = bp64.bp64_encode_numpy(v, 19)
+    args = [torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32
+                             else a) for a in (pay, wid, anc)]
+    got = bp64.bp64_decode_torch(*(a.to(cuda) for a in args), 512)
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), bp64.bp64_decode_torch(*args, 512))
+    assert np.array_equal(got.cpu().numpy().astype(np.uint32), v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["packed", "bp64"])
+@pytest.mark.parametrize("profile", ["RNG19_RFL8_SIG16_NIR16",
+                                     "RNG19_RFL8_SIG16_NIR16_DUAL"])
+def test_wire_projections_launch_the_kernel_once(cuda, tmp_path, codec,
+                                                 profile):
+    """pcap -> iter_packed_chunks / iter_bp64_chunks -> fused upload ->
+    project_*_batched on the card: one planar_project launch a call, XYZ
+    bit-equal to the planar path on the same frames and, with poses, to the
+    CPU's plain route."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.ops import bp64, packed
+
+    info = cs.synth_info(profile, w=512, h=32)
+    path = str(tmp_path / "wire.pcap")
+    cs.synth_capture(path, info, 6)
+    pipe = pt.ScanPipeline(info)
+    plan, lut = pipe.plan, pipe.planar_lut.stack
+    fields, nbits, ups = packed.packed_range_fields(plan, pipe.dual)
+    reader = pt.FrameReader(path, info)
+    it = (reader.iter_bp64_chunks if codec == "bp64"
+          else reader.iter_packed_chunks)
+    fn = (bp64.project_bp64_batched if codec == "bp64"
+          else packed.project_packed_batched)
+    planar = list(pt.FrameReader(path, info).iter_planar_chunks(4))
+    case = "planar_dual" if pipe.dual else "planar"
+    for item, (_, planes, hdrs, _) in zip(it(4, fields=fields, nbits=nbits),
+                                          planar):
+        fused, layout = pt.ChunkFuser().pack(list(item[1:-1]))
+        parts = packed.unfuse_words(
+            torch.from_numpy(fused.view(np.int32)).to(cuda), layout)
+        pk.reset_launches()
+        got = fn(*parts, lut, plan, nbits, upshifts=ups, dual=pipe.dual)
+        assert pk.launches[case] == 1 and sum(pk.launches.values()) == 1
+        want = pipe.project_planar(planes, hdrs)
+        for g, w in zip(*(x if pipe.dual else (x,) for x in (got, want))):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+        P = torch.from_numpy(cs.random_poses(item[0].size, 512, seed=2))
+        got = fn(*parts, lut, plan, nbits, upshifts=ups, dual=pipe.dual,
+                 poses=P.to(cuda))
+        want = fn(*(p.cpu() for p in parts), lut.cpu(), plan, nbits,
+                  upshifts=ups, dual=pipe.dual, poses=P)
+        for g, w in zip(*(x if pipe.dual else (x,) for x in (got, want))):
+            assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_sharded_project_on_a_one_card_mesh(cuda):
+    """ScanPipeline.sharded(make_mesh()) on the card, and on the card
+    listed twice: one launch a shard, joined bit-equal to project_planar."""
+    info = _info("RNG19_RFL8_SIG16_NIR16_DUAL")
+    pipe = pt.ScanPipeline(info)
+    planes, hdrs = _inputs(pipe.plan, 8, seed=4)
+    want = pipe.project_planar(planes, hdrs)
+    for mesh in (pt.make_mesh(), pt.make_mesh(devices=[cuda, cuda])):
+        sp = pipe.sharded(mesh)
+        pk.reset_launches()
+        got = sp.project(sp.shard(planes), sp.shard(hdrs))
+        assert pk.launches["planar_dual"] == sp.n_shards
+        for g, w in zip(got, want):
+            assert all(s.device.type == "cuda" for s in g.shards)
+            assert torch.equal(g.join().view(torch.int32),
+                               w.view(torch.int32))

@@ -110,6 +110,61 @@ def test_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_wire_and_parallel_run_with_jax_unimportable(tmp_path):
+    """ops.packed, ops.bp64, the wire stagings of io.frames and parallel/
+    with jax and the JAX package made unimportable: a capture staged packed
+    and BP64, fused, decoded and projected on the CPU, equal to the planar
+    path, then split over two CPU devices."""
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np, torch
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        from ouster_sdk_tpu_torch.ops import bp64, packed
+        from ouster_sdk_tpu_torch import parallel
+        info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
+        path = {str(tmp_path / "wire.pcap")!r}
+        cs.synth_capture(path, info, 5)
+        pipe = pt.ScanPipeline(info, device="cpu")
+        fields, nbits, ups = packed.packed_range_fields(pipe.plan, True)
+        reader = pt.FrameReader(path, info)
+        _, planes, hdrs, _ = next(reader.iter_planar_chunks(8))
+        want = pipe.project_planar(planes, hdrs)
+        for it, fn in ((reader.iter_packed_chunks,
+                        packed.project_packed_batched),
+                       (reader.iter_bp64_chunks, bp64.project_bp64_batched)):
+            for _, fused, layout in pt.fused_pipelined(
+                    lambda: it(8, fields=fields, nbits=nbits),
+                    lambda item: (item[0], list(item[1:-1]))):
+                parts = packed.unfuse_words(
+                    torch.from_numpy(fused.view(np.int32)), layout)
+                got = fn(*parts, pipe.planar_lut.stack, pipe.plan, nbits,
+                         upshifts=ups, dual=True)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+        sp = pipe.sharded(parallel.make_mesh(devices=["cpu", "cpu"]))
+        (fids, xyz), = list(sp.map_source(reader, chunk=6))
+        assert fids.tolist() == [1, 2, 3, 4, 5]
+        assert torch.equal(xyz[0].join()[:5], want[0])
+        if not torch.cuda.is_available():
+            try:
+                parallel.make_mesh()
+                raise AssertionError("make_mesh() without CUDA")
+            except RuntimeError:
+                pass
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_engine_runs_with_jax_unimportable():
     """The device engine end to end (capture, iterator, index, live
     batcher, projector) and the chip smoke run's jax-free synthesizer,
