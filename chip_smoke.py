@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels and the native host library (g++, the port's own
 C++ copy) from the sources in this checkout, synthesizes captures with the
-port's own packet and pcap writers, and drives the port's nine paths
+port's own packet and pcap writers, and drives the port's ten paths
 through the entry points a user calls. Every path stages its packets
 through the native library: its call counts are read after each path and
 the run fails unless each path made a capture scan and grouper calls.
@@ -77,7 +77,24 @@ twice, project bit-equal to project_planar (dual; with poses, the first
 return), map_source over the main capture with its tail padded,
 sharded_multi_sensor_step on two sensors (XYZ bit-equal to
 ScanPipeline.batch, the centroid within rtol 1e-5 of a float64 sum) and
-fuse_multi_sensor_clouds against the CPU.
+fuse_multi_sensor_clouds against the CPU. The SLAM path: a 30-frame
+capture of an outdoor yard (ground, buildings, a fence, parked cars, poles;
+surfaces 5-80 m away) at 128x2048 dual, every column ray-cast from the
+sensor's pose at its own time while a vehicle speeds up from rest to 1 m
+and 1 degree a frame, written with io/save.scan_to_packets and the pcap
+writer -> open_source -> SlamEngine(SlamConfig(backend="device")) (the
+Gauss-Newton loop on the card around the icp_nn kernel) -> per-column poses
+in each scan, and the host backend in turns; the device trajectory is held
+to the ground truth (translation delta <= 0.05 m a frame once the vehicle
+cruises) and to the host one (<= 0.05 m), a run with TF32 allowed to the
+same bits, and the run's launches to its Gauss-Newton iterations; scans/s
+of both backends and the layers (gather, preprocess, voxelize, map copy,
+icp_nn, Gauss-Newton step and syncs, map update) are printed. Then icp_nn
+is held bit-equal (indices and distances) to its plain version at the
+SLAM run's largest map and at 8192 x 524288 yard points, with
+torch.cdist + min timed beside it as context; scan_normals(backend=
+"device") against the numpy normals on yard scans; and
+voxel_downsample_device against the numpy voxel_downsample.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -107,8 +124,9 @@ staging stages with the native library beside the numpy versions it
 replaces (io/frames.py keeps them: the route on a host without g++) on the
 same bytes, held byte-equal, and the frames/s of the six paths.
 
-Prints the card's name and power limit, a `kernels` JSON line of twelve
-entries, and last
+Prints the card's name and power limit, a `kernels` JSON line of thirteen
+entries (the last, icp_nn, replaces an XLA-fused search that has no Pallas
+kernel), and last
 a JSON object with "ok". Exits non-zero, with no result, when CUDA is
 unavailable or any phase fails.
 """
@@ -878,6 +896,13 @@ def _run(torch, port, pk, dev, tmp) -> int:
             entry["launches"] += n
             print(f"planar_project<{case}>: {n} more launches on the "
                   f"{phase} path; {entry['launches']} in all")
+    t0 = time.perf_counter()
+    slam = _run_slam(torch, port, dev, tmp)
+    kernels.append(_run_icp_nn(torch, port, dev, slam))
+    _run_normals(torch, port, dev, slam["info"], slam["scans"])
+    _run_downsample(torch, port, dev, slam["info"], slam["scans"])
+    print(f"slam, icp nn, normals and voxel downsample phases: "
+          f"{time.perf_counter() - t0:.1f} s")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -3264,6 +3289,663 @@ def _run_multi(torch, port, pk, dev, info, path, runs) -> dict:
           f"points, {int((err > 0).sum())} elements differ from the CPU, "
           f"max |d| {err.max():.3g} m (within 2 f32 ulp of the terms)")
     return launched
+
+
+
+# -- SLAM on the card, the ICP's kernel, normals, voxel downsampling ---------
+
+SLAM_VOXEL = 1.0      # m: KISS-ICP's voxel for a vehicle (max range / 100)
+ICP_NN_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/icp_nn.cu"
+ICP_NN_REPLACES = "ouster_sdk_tpu/slam/jax_icp.py:75 _chunked_nn " \
+    "(XLA-fused, no Pallas)"
+ICP_NN_LARGE = (8192, 524288)   # queries, map points
+
+
+def _run_slam(torch, port, dev, tmp) -> dict:
+    """The SLAM path: the yard capture (SLAM_FRAMES frames at 128x2048
+    dual) -> open_source -> SlamEngine(SlamConfig(backend="device")) ->
+    per-column poses in each scan, and the same with the host backend, in
+    turns (device, host, device with TF32 allowed, host). Holds the device
+    trajectory to the ground truth (per-frame translation delta <= 0.05 m
+    once the vehicle cruises) and to the host one (<= 0.05 m), and the TF32
+    run to the first device run bit for bit. Returns what the icp nn phase
+    needs: the launches of the first device run, the inputs of the
+    largest registration and the scene's world points."""
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam import device_icp as di
+    from ouster_sdk_tpu_torch.slam import engine as se
+    from ouster_sdk_tpu_torch.slam import kiss_icp as ki
+
+    info = synth_info(MAIN_PROFILE)
+    path = os.path.join(tmp, "yard.pcap")
+    t0 = time.perf_counter()
+    truth = yard_capture(port, path, info, SLAM_FRAMES)
+    gt = np.linalg.inv(truth[0]) @ truth
+    print(f"synthesized the yard ({SLAM_FRAMES} frames "
+          f"{info.format.pixels_per_column}x{info.format.columns_per_frame} "
+          f"dual, "
+          f"{os.path.getsize(path) / 1e6:.1f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    mid = (info.format.columns_per_frame - 1) // 2
+
+    def drive(backend, keep=()):
+        eng = se.SlamEngine([info], se.SlamConfig(backend=backend,
+                                                  voxel_size=SLAM_VOXEL))
+        if backend == "device":
+            check(eng.device.type == "cuda", "SlamEngine did not pick cuda")
+        poses, frames, written = [], [], True
+        t0 = time.perf_counter()
+        for k, scans in enumerate(port.open_source(path,
+                                                   sensor_info=[info])):
+            if k in keep:
+                kept.append(scans[0])
+            eng.update(scans)
+            poses.append(eng.last_pose.copy())
+            # the per-column poses written back: the middle column's is
+            # the registered pose
+            written &= bool(np.allclose(scans[0].pose[mid], poses[-1],
+                                        atol=1e-9))
+            if backend == "device":
+                frames.append(dict(eng._kiss.last_frame))
+        if backend == "device":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        check(len(poses) == SLAM_FRAMES, f"{backend}: {len(poses)} scans")
+        check(written, f"{backend}: poses not written back into the scans")
+        return np.stack(poses), frames, secs
+
+    # the layers of a device run: host-clock timers around the host steps,
+    # CUDA events around each icp_nn launch (no added sync)
+    layer_fns = (("gather", se.SlamEngine, "_gather_frame"),
+                 ("preprocess", ki.KissICP, "preprocess"),
+                 ("voxelize", ki.KissICP, "voxelize"),
+                 ("map pointcloud", ki.VoxelHashMap, "pointcloud"),
+                 ("register_points_device", di, "register_points_device"),
+                 ("map update", ki.VoxelHashMap, "update"))
+    events, largest, gathered = [], {}, []
+
+    def timed_nn(src, map_pts, map_valid, voxel_size):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = nn.icp_nn(src, map_pts, map_valid, voxel_size)
+        end.record()
+        events.append((start, end))
+        if map_pts.shape[0] > largest.get("m", -1):
+            largest.update(m=map_pts.shape[0], src=src.clone(),
+                           map=map_pts, voxel=voxel_size)
+        return out
+
+    gather = se.SlamEngine._gather_frame
+
+    def kept_gather(self, scans, mid_pose_inv):
+        out = gather(self, scans, mid_pose_inv)
+        gathered.append((out, np.linalg.inv(mid_pose_inv)))
+        return out
+
+    # the host syncs of each registration as torch's sync debug mode counts
+    # them (a read back, a pageable copy in) on the registering thread (the
+    # engine's staging thread runs beside it), and where they were made:
+    # the sync figure of the SLAM phase
+    register = di.DeviceICP.register_frame
+    frame_syncs = []
+
+    def sync_window(fn):
+        import gc
+        import warnings
+
+        me, seen = threading.get_ident(), []
+
+        def show(message, category, filename, lineno, *rest):
+            if threading.get_ident() == me and "synchroniz" in str(message):
+                where = os.path.join(*os.path.normpath(filename)
+                                     .split(os.sep)[-2:])
+                seen.append(f"{where}:{lineno}")
+
+        # no collection inside the window: a tensor freed by the collector
+        # is not the registration's
+        gc.collect()
+        gc.disable()
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = show
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                return fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+                gc.enable()
+                frame_syncs.append(seen)
+
+    # the first window in a process counts one sync of its own (at
+    # torch/cuda/__init__.py), the next ones none: open one uncounted
+    sync_window(lambda: None)
+    frame_syncs.clear()
+
+    def sync_counted(self, *args, **kwargs):
+        return sync_window(lambda: register(self, *args, **kwargs))
+
+    runs = {"device": [], "host": []}
+    kept = []
+    nn.reset_launches()
+    dev_poses, frames, secs = drive("device", keep=(YARD_RAMP,
+                                                    SLAM_FRAMES - 1))
+    launches = nn.launches["icp_nn"]
+    runs["device"].append(secs)
+    host_poses, _, secs = drive("host")
+    runs["host"].append(secs)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    counters = [count_calls(m, n) for _, m, n in layer_fns]
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        di.icp_nn = timed_nn
+        se.SlamEngine._gather_frame = kept_gather
+        for c in counters:
+            c.__enter__()
+        di.DeviceICP.register_frame = sync_counted
+        tf32_poses, _, secs = drive("device")
+    finally:
+        di.DeviceICP.register_frame = register
+        for c in counters:
+            c.__exit__()
+        se.SlamEngine._gather_frame = gather
+        di.icp_nn = nn.icp_nn
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.cuda.synchronize()
+    runs["device"].append(secs)
+    _, _, secs = drive("host")
+    runs["host"].append(secs)
+
+    check(launches > 0, "the SLAM path never launched icp_nn")
+    check(launches == sum(f["iterations"] for f in frames),
+          f"icp_nn launches {launches} != GN iterations")
+    check(np.array_equal(tf32_poses, dev_poses),
+          "the device trajectory changed with allow_tf32 = True")
+    check(len(frame_syncs) == SLAM_FRAMES,
+          f"{len(frame_syncs)} registrations in the sync-counted run")
+    syncs = [len(w) for w in frame_syncs]
+    print(f"slam: host syncs by torch's sync debug mode (the registering "
+          f"thread, the TF32 run) {sum(syncs)} in {SLAM_FRAMES} frames; "
+          f"where, frame 10: {sorted(set(frame_syncs[10]))}")
+    for k, f in enumerate(frames):
+        d_err = np.linalg.norm((dev_poses[k, :3, 3] - dev_poses[k - 1, :3, 3])
+                               - (gt[k, :3, 3] - gt[k - 1, :3, 3])) \
+            if k else 0.0
+        h_err = np.linalg.norm((host_poses[k, :3, 3]
+                                - host_poses[k - 1, :3, 3])
+                               - (gt[k, :3, 3] - gt[k - 1, :3, 3])) \
+            if k else 0.0
+        apart = np.linalg.norm(dev_poses[k, :3, 3] - host_poses[k, :3, 3])
+        print(f"slam frame {k}: N {f['n']} M {f['m']} iterations "
+              f"{f['iterations']} icp_nn launches {f['iterations']} syncs "
+              f"{syncs[k]}; delta error device {d_err:.4f} host "
+              f"{h_err:.4f} m; device - host {apart:.5f} m; absolute error "
+              f"device "
+              f"{np.linalg.norm(dev_poses[k, :3, 3] - gt[k, :3, 3]):.4f} m")
+        if k >= YARD_RAMP:
+            check(d_err <= 0.05 and h_err <= 0.05,
+                  f"frame {k}: delta error {d_err:.4f} (device), "
+                  f"{h_err:.4f} (host) > 0.05 m")
+    worst = float(np.linalg.norm(dev_poses[:, :3, 3] - host_poses[:, :3, 3],
+                                 axis=1).max())
+    check(worst <= 0.05, f"device trajectory {worst} m from the host one")
+    print(f"slam: device trajectory within {worst:.5f} m of the host one; "
+          f"TF32 run bit-equal; {launches} icp_nn launches, "
+          f"{sum(syncs)} host syncs in "
+          f"{SLAM_FRAMES} frames")
+    for name, vals in runs.items():
+        print(f"slam {name} backend: scans/s "
+              + ", ".join(f"{SLAM_FRAMES / s:.2f}" for s in vals)
+              + f" (open_source -> SlamEngine.update, {SLAM_FRAMES} frames, "
+              f"in turns; the second device run with the layer timers and "
+              f"torch's sync debug mode on) "
+              f"[{CARD}]")
+        FPS[f"slam {name}"] = SLAM_FRAMES / vals[0]
+    nn_ms = sum(s.elapsed_time(e) for s, e in events)
+    reg = counters[[n for n, _, _ in layer_fns].index(
+        "register_points_device")]
+    upload = sum(f["upload_s"] for f in frames) * 1e3
+    for (name, _, _), c in zip(layer_fns, counters):
+        print(f"slam layer {name}: {c.seconds * 1e3 / SLAM_FRAMES:.3f} "
+              f"ms/frame ({c.n} calls)")
+    print(f"slam layer map upload (pointcloud + copy, first device run): "
+          f"{upload / SLAM_FRAMES:.3f} ms/frame")
+    print(f"slam layer icp_nn (CUDA events): {nn_ms / SLAM_FRAMES:.3f} "
+          f"ms/frame over {len(events)} launches; GN step and syncs "
+          f"(register_points_device - icp_nn): "
+          f"{(reg.seconds * 1e3 - nn_ms) / SLAM_FRAMES:.3f} ms/frame")
+    return dict(launches=launches, largest=largest, gathered=gathered,
+                frames=frames, info=info, scans=kept)
+
+
+def _candidate_pairs(torch, nn, src, map_pts, voxel) -> int:
+    """The (query, map point) pairs whose voxels lie within Chebyshev
+    distance 1: the pairs the function needs to look at on these inputs,
+    whatever the search (the kernel looks at all N x M)."""
+    sv = nn._voxels(src, voxel)
+    pairs = 0
+    for k in range(0, map_pts.shape[0], 8192):
+        mv = nn._voxels(map_pts[k:k + 8192], voxel)
+        pairs += int(((sv[:, None] - mv[None]).abs() <= 1).all(dim=-1).sum())
+    return pairs
+
+
+def _icp_nn_times(torch, nn, src, map_pts, voxel):
+    """The kernel against the plain version on the card: equal indices and
+    bit-equal distances, the kernel's time (median of 7 CUDA-event
+    windows), the plain version's and the bound: the larger of the bytes
+    (each point read once, each result written once) over the HBM rate
+    and 17 operations (8 for d2, 9 for the voxel test) for each candidate
+    pair over the no-FMA f32 rate. The brute-force figure, N x M pairs,
+    is what the kernel's design does, not what the function needs; it is
+    returned beside the bound."""
+    n, m = src.shape[0], map_pts.shape[0]
+    got = nn.icp_nn(src, map_pts, None, voxel)
+    want = nn.icp_nn_reference(src, map_pts, None, voxel)
+    torch.cuda.synchronize()
+    check(torch.equal(got[1], want[1]),
+          f"icp_nn N={n} M={m}: {int((got[1] != want[1]).sum())} indices "
+          f"differ from the plain version")
+    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
+          f"icp_nn N={n} M={m}: distances not bit-equal")
+    fin = torch.isfinite(got[0])
+    err = float((got[0][fin] - want[0][fin]).abs().max()) \
+        if bool(fin.any()) else 0.0
+    ms, lo, hi = cuda_ms(lambda: nn.icp_nn(src, map_pts, None, voxel),
+                         iters=5)
+    plain_ms = cuda_ms(lambda: nn.icp_nn_reference(src, map_pts, None,
+                                                   voxel),
+                       iters=1, windows=3, warm=1)[0]
+    pairs = _candidate_pairs(torch, nn, src, map_pts, voxel)
+    nbytes = n * 12 + m * 12 + n * 12
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = pairs * 17 / PEAK_F32_NO_FMA_PER_S * 1e3
+    return dict(max_abs_err=err, ms=ms, lo=lo, hi=hi, plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                pairs=pairs,
+                brute_ms=n * m * 17 / PEAK_F32_NO_FMA_PER_S * 1e3,
+                with_candidate=int(fin.sum()))
+
+
+def _gn_split(torch, src, map_pts, voxel) -> None:
+    """What one Gauss-Newton iteration of register_points_device costs on
+    the card beside its icp_nn launch: the iteration whole (host clock,
+    with its one sync; best of 5), and its parts, each the larger of its
+    device time and its host issue time (cuda_ms)."""
+    from ouster_sdk_tpu_torch.slam import device_icp as di
+
+    dev = src.device
+    eye = torch.eye(4, device=dev)
+
+    def one():
+        di.register_points_device(src, None, map_pts, None, eye, 3.0, 1.0,
+                                  voxel_size=voxel, max_iters=1)
+        torch.cuda.synchronize()
+
+    it_ms = min(_host_s(one) for _ in range(5)) * 1e3
+    n = src.shape[0]
+    r = torch.randn(n, 3, device=dev) * 0.1
+    w = torch.rand(n, device=dev)
+    corr = w > 0.1
+    A = torch.eye(6, dtype=torch.float64, device=dev) * 4 + 0.1
+    b = torch.ones(6, dtype=torch.float64, device=dev)
+    dx = torch.full((6,), 1e-3, device=dev)
+    parts = {
+        "icp_nn": lambda: di.icp_nn(src, map_pts, None, voxel),
+        "normal terms (stack + one sum)": lambda: di._normal_terms(
+            src, r, w, corr),
+        "6x6 solve_ex (float64)": lambda: torch.linalg.solve_ex(A, b),
+        "_se3_exp_kiss": lambda: di._se3_exp_kiss(dx),
+    }
+    print(f"slam Gauss-Newton iteration at N={n} M={map_pts.shape[0]}: "
+          f"{it_ms:.3f} ms whole (one sync) [{CARD}]; parts: " + "; ".join(
+              f"{name} {cuda_ms(fn, iters=20, windows=3)[0]:.4f} ms"
+              for name, fn in parts.items()))
+
+
+def _run_icp_nn(torch, port, dev, slam) -> dict:
+    """icp_nn against icp_nn_reference on the card at the largest
+    registration of the SLAM run and at ICP_NN_LARGE (queries and map
+    points from the yard, voxel 1.0 m); torch.cdist + min on the large
+    points as context (not the same function: no voxel mask). Returns the
+    kernel's entry of the `kernels` line."""
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+
+    big = slam["largest"]
+    at = _icp_nn_times(torch, nn, big["src"], big["map"], big["voxel"])
+    n, m = big["src"].shape[0], big["m"]
+    print(f"icp_nn N={n} M={m} (the SLAM run's largest map): kernel "
+          f"{at['ms']:.4f} ms (median of 7 x 5; min {at['lo']:.4f}, max "
+          f"{at['hi']:.4f}), plain {at['plain_ms']:.3f} ms, bound "
+          f"{at['bound_ms']:.5f} ms ({at['bound_by']}; {at['pairs']} "
+          f"candidate pairs), {at['bound_ms'] / at['ms']:.2%} of bound; "
+          f"the brute-force N x M operation figure {at['brute_ms']:.4f} ms "
+          f"({at['brute_ms'] / at['ms']:.0%}); indices equal, "
+          f"distances bit-equal ({at['with_candidate']} of {n} with a "
+          f"candidate) [{CARD}]")
+    _gn_split(torch, big["src"], big["map"], big["voxel"])
+    # the large case: the yard's world points as the map
+    world = np.concatenate([p @ P[:3, :3].T + P[:3, 3]
+                            for p, P in slam["gathered"]])
+    qn, mn = ICP_NN_LARGE
+    check(world.shape[0] >= mn, f"only {world.shape[0]} yard points")
+    rng = np.random.default_rng(12)
+    map_pts = torch.from_numpy(world[:mn].astype(np.float32)).to(dev)
+    q = world[rng.choice(world.shape[0], qn, replace=False)]
+    q = q + rng.normal(0.0, 0.05, q.shape)
+    src = torch.from_numpy(q.astype(np.float32)).to(dev)
+    large = _icp_nn_times(torch, nn, src, map_pts, SLAM_VOXEL)
+    print(f"icp_nn N={qn} M={mn}: kernel {large['ms']:.4f} ms (median of "
+          f"7 x 5; min {large['lo']:.4f}, max {large['hi']:.4f}), plain "
+          f"{large['plain_ms']:.3f} ms, bound {large['bound_ms']:.5f} ms "
+          f"({large['bound_by']}; {large['pairs']} candidate pairs), "
+          f"{large['bound_ms'] / large['ms']:.2%} of bound; the brute-force "
+          f"N x M operation figure {large['brute_ms']:.4f} ms "
+          f"({large['brute_ms'] / large['ms']:.0%}), "
+          f"{qn * mn / large['ms'] / 1e9:.2f} Tpairs/s; indices "
+          f"equal, distances bit-equal ({large['with_candidate']} of {qn} "
+          f"with a candidate) [{CARD}]")
+
+    def cdist_min():
+        return min(torch.cdist(src, map_pts[k:k + 65536]).min(dim=1).values
+                   .min() for k in range(0, mn, 65536))
+
+    cd_ms = cuda_ms(cdist_min, iters=1, windows=3, warm=1)[0]
+    print(f"context: torch.cdist + min over the same {qn} x {mn} points "
+          f"(8 calls of 65536 map points, no voxel mask, not the same "
+          f"function): {cd_ms:.3f} ms [{CARD}]")
+    return {"name": "icp_nn", "route": "cuda", "source": ICP_NN_SOURCE,
+            "replaces": ICP_NN_REPLACES, "launches": slam["launches"],
+            "max_abs_err": max(at["max_abs_err"], large["max_abs_err"]),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": None}
+
+
+def _angles(a: np.ndarray, b: np.ndarray):
+    """Per-pixel angle in degrees between normals a and b where both are
+    non-zero, and the pixels where exactly one is."""
+    na, nb = np.linalg.norm(a, axis=-1), np.linalg.norm(b, axis=-1)
+    both = (na > 0.5) & (nb > 0.5)
+    one = (na > 0.5) != (nb > 0.5)
+    cos = np.sum(a * b, axis=-1) / np.maximum(na * nb, 1e-300)
+    return np.degrees(np.arccos(np.clip(cos[both], -1, 1))), int(one.sum())
+
+
+def _run_normals(torch, port, dev, info, scans) -> None:
+    """scan_normals(backend="device") (float32 on the card) against the
+    numpy normals (float64) on yard scans, both returns: at most 1 % of the
+    pixels with a normal in either may disagree (f32 rounding flips a
+    neighbour or case decision), and the rest within 0.1 degree."""
+    import copy
+
+    from ouster_sdk_tpu_torch.ops.normals import scan_normals
+
+    worst, p99, flips, n_px = 0.0, 0.0, 0, 0
+    for scan in scans:
+        a, b = copy.deepcopy(scan), copy.deepcopy(scan)
+        scan_normals(a, info, backend="numpy")
+        scan_normals(b, info, backend="device")
+        for field in ("NORMALS", "NORMALS2"):
+            ang, one = _angles(a.field(field).astype(np.float64),
+                               b.field(field).astype(np.float64))
+            n_px += ang.size + one
+            flips += int((ang > 0.1).sum()) + one
+            p99 = max(p99, float(np.percentile(ang, 99)))
+            if (ang <= 0.1).any():
+                worst = max(worst, float(ang[ang <= 0.1].max()))
+    check(flips <= 0.01 * n_px, f"normals: {flips} of {n_px} pixels differ")
+    scan = copy.deepcopy(scans[0])
+
+    def device_call():
+        scan_normals(scan, info, backend="device")
+        torch.cuda.synchronize()
+
+    host_s = min(_host_s(device_call) for _ in range(3))
+    numpy_s = min(_host_s(lambda: scan_normals(scan, info, backend="numpy"))
+                  for _ in range(2))
+    from ouster_sdk_tpu_torch.ops.destagger import destagger
+    from ouster_sdk_tpu_torch.ops.normals_device import normals_device
+
+    lut = port.make_xyz_lut(info)
+    r1, r2 = scan.field("RANGE"), scan.field("RANGE2")
+    xyz1 = torch.from_numpy(destagger(info, lut(r1)).astype(np.float32)) \
+        .to(dev)
+    xyz2 = torch.from_numpy(destagger(info, lut(r2)).astype(np.float32)) \
+        .to(dev)
+    rd1 = torch.from_numpy(destagger(info, r1).astype(np.int64)).to(dev)
+    rd2 = torch.from_numpy(destagger(info, r2).astype(np.int64)).to(dev)
+    origins = torch.zeros((info.format.columns_per_frame, 3), device=dev)
+    ms = cuda_ms(lambda: normals_device(xyz1, rd1, origins, xyz2, rd2),
+                 iters=5, windows=5)[0]
+    print(f"normals: {len(scans)} yard scans {info.format.pixels_per_column}x"
+          f"{info.format.columns_per_frame} dual, device (f32) "
+          f"against numpy (f64): {flips} of {n_px} pixels disagree (> 0.1 "
+          f"deg or a normal in one only, limit 1 %), the rest within "
+          f"{worst:.2e} deg, 99th percentile of all {p99:.2e} deg; "
+          f"scan_normals device {host_s * 1e3:.2f}"
+          f" ms/scan (numpy {numpy_s * 1e3:.1f}), normals_device alone "
+          f"{ms:.3f} ms/scan [{CARD}]")
+
+
+def _run_downsample(torch, port, dev, info, scans) -> None:
+    """voxel_downsample_device on a yard scan's points (float32 on the
+    card) against the numpy voxel_downsample (float64) at 0.25 m: the same
+    voxels (a power of two, so both assign every point the same cell), the
+    centroids within 2e-5 m, no voxel past the capacity."""
+    from ouster_sdk_tpu_torch.ops.downsample import (voxel_downsample,
+                                                     voxel_downsample_device)
+
+    lut = port.make_xyz_lut(info)
+    r = scans[-1].field("RANGE")
+    pts = lut(r)[r > 0].astype(np.float32)
+    cent, _ = voxel_downsample(pts, 0.25)
+    capacity = 1 << int(np.ceil(np.log2(cent.shape[0] + 1)))
+    pts_d = torch.from_numpy(pts).to(dev)
+    got, mask = voxel_downsample_device(pts_d, 0.25, capacity)
+    got = got[mask].cpu().numpy()
+    check(got.shape == cent.shape,
+          f"voxel downsample: {got.shape[0]} voxels, numpy {cent.shape[0]}")
+    err = float(np.abs(got - cent).max())
+    check(err <= 2e-5, f"voxel downsample centroids {err} m from numpy")
+    again, _ = voxel_downsample_device(pts_d, 0.25, capacity)
+    n_var = int((again[mask].cpu().numpy() != got).any(axis=1).sum())
+    ms = cuda_ms(lambda: voxel_downsample_device(pts_d, 0.25, capacity),
+                 iters=5, windows=5)[0]
+    numpy_ms = min(_host_s(lambda: voxel_downsample(pts, 0.25))
+                   for _ in range(2)) * 1e3
+    print(f"voxel downsample: {pts.shape[0]} points of a yard scan -> "
+          f"{cent.shape[0]} voxels of 0.25 m, same set as numpy, centroids "
+          f"within {err:.2e} m (limit 2e-5); {n_var} centroids differ "
+          f"between two runs (atomics); device {ms:.3f} ms, numpy "
+          f"{numpy_ms:.1f} ms [{CARD}]")
+
+
+# -- SLAM: an outdoor yard driven through at vehicle speed --------------------
+
+SLAM_FRAMES = 30
+YARD_SPEED = 1.0                   # m a frame: 10 m/s at 10 Hz
+YARD_YAW = np.deg2rad(1.0)         # rad a frame at YARD_SPEED
+YARD_RAMP = 10                     # frames from rest to YARD_SPEED
+YARD_HEIGHT = 1.8                  # the sensor above the ground, m
+# buildings and a fence (x0, x1, y0, y1, height) around an arc of 30 m, and
+# the cars parked along it (4.5 x 1.8 x 1.5 m, from a seed)
+YARD_BUILDINGS = (
+    (10.0, 30.0, 14.0, 26.0, 8.0), (35.0, 60.0, -22.0, -9.0, 10.0),
+    (-30.0, -12.0, -16.0, 6.0, 6.0), (46.0, 56.0, 22.0, 45.0, 12.0),
+    (0.0, 16.0, -28.0, -16.0, 5.0), (68.0, 76.0, -4.0, 16.0, 15.0),
+    (-8.0, 4.0, 12.0, 20.0, 7.0), (20.0, 32.0, -30.0, -18.0, 9.0),
+    (-20.0, 80.0, -12.5, -12.2, 2.0))
+
+
+def _parked_cars(seed: int = 11):
+    rng = np.random.default_rng(seed)
+    cars = []
+    for y0, x in [(-5.0, x) for x in np.arange(-20.0, 70.0, 6.5)] + \
+            [(9.5, x) for x in np.arange(-20.0, 40.0, 7.0)]:
+        if rng.random() < 0.75:
+            x0 = x + rng.uniform(-1.0, 1.0)
+            cars.append((x0, x0 + 4.5, y0, y0 + 1.8, 1.5))
+    return tuple(cars)
+
+
+YARD_BOXES = YARD_BUILDINGS + _parked_cars()
+# poles and tree trunks (x, y, radius, height)
+YARD_POLES = tuple((x, -7.0, 0.2, 6.0) for x in range(-10, 75, 10)) + \
+    tuple((x + 5.0, 12.0, 0.3, 4.0) for x in range(-10, 45, 8))
+YARD_MAX_M = 90.0                  # no return beyond
+
+
+def yard_poses(t: np.ndarray, ramp: int = YARD_RAMP) -> np.ndarray:
+    """World poses (len(t), 4, 4) of the sensor at times t, in frames,
+    YARD_HEIGHT above the ground: from rest at the origin the vehicle
+    speeds up evenly to YARD_SPEED over `ramp` frames (0: at YARD_SPEED
+    from the start) and holds it, on an arc that turns YARD_YAW a frame at
+    that speed (a constant twist along the distance driven)."""
+    from ouster_sdk_tpu_torch.utils.pose_util import _se3_exp64_batch
+
+    t = np.asarray(t, np.float64)
+    dist = YARD_SPEED * np.where(t < ramp, t * t / (2 * max(ramp, 1)),
+                                 t - ramp / 2)
+    xi = np.array([0.0, 0.0, YARD_YAW / YARD_SPEED, 1.0, 0.0, 0.0])
+    P = _se3_exp64_batch(dist[:, None] * xi[None])
+    P[:, 2, 3] += YARD_HEIGHT
+    return P
+
+
+def _wrap(a: np.ndarray) -> np.ndarray:
+    return (a + np.pi) % (2 * np.pi) - np.pi
+
+
+def _seen(o: np.ndarray, u: np.ndarray, rects: np.ndarray) -> np.ndarray:
+    """Which rectangles (k, 4: x0, x1, y0, y1) a bundle of rays (origins o,
+    unit directions u, (..., 3)) can reach in the xy plane, conservatively:
+    those whose azimuth interval seen from the bundle's mean origin,
+    widened by the origins' spread, overlaps the rays' azimuths."""
+    c = o[..., :2].reshape(-1, 2).mean(axis=0)
+    spread = np.linalg.norm(o[..., :2].reshape(-1, 2) - c, axis=1).max()
+    uh = u[..., :2].reshape(-1, 2)
+    if np.linalg.norm(uh, axis=1).min() < 0.1:      # steep rays: no cull
+        return np.ones(len(rects), bool)
+    az = np.arctan2(uh[:, 1], uh[:, 0])
+    mid = np.arctan2(np.sin(az).mean(), np.cos(az).mean())
+    rel = _wrap(az - mid)
+    lo, hi = rel.min(), rel.max()
+    cx = np.stack([rects[:, 0], rects[:, 1], rects[:, 0], rects[:, 1]], 1)
+    cy = np.stack([rects[:, 2], rects[:, 2], rects[:, 3], rects[:, 3]], 1)
+    ang = _wrap(np.arctan2(cy - c[1], cx - c[0]) - mid)
+    dx = np.maximum(np.maximum(rects[:, 0] - c[0], c[0] - rects[:, 1]), 0)
+    dy = np.maximum(np.maximum(rects[:, 2] - c[1], c[1] - rects[:, 3]), 0)
+    dist = np.hypot(dx, dy)
+    near = dist <= 2 * spread + 1e-6
+    margin = np.arcsin(np.minimum(1.0, spread / np.maximum(dist, 1e-9)))
+    behind = ang.max(axis=1) - ang.min(axis=1) > np.pi   # straddles +-pi
+    return near | behind | ((ang.min(axis=1) - margin <= hi)
+                            & (ang.max(axis=1) + margin >= lo))
+
+
+def _ray_cast(o: np.ndarray, u: np.ndarray, cols: int = 64) -> np.ndarray:
+    """Distance along unit rays u from origins o (both (h, w, 3), world)
+    to the first yard surface (the ground z = 0, YARD_BOXES, YARD_POLES),
+    inf where none lies within YARD_MAX_M; a bundle of `cols` columns at a
+    time, against the shapes it can reach (_seen)."""
+    boxes = np.asarray(YARD_BOXES)
+    poles = np.asarray(YARD_POLES)
+    x, y, r = poles[:, 0], poles[:, 1], poles[:, 2]
+    pole_rects = np.stack([x - r, x + r, y - r, y + r], 1)
+    out = np.empty(u.shape[:-1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for k in range(0, u.shape[1], cols):
+            ob, ub = o[:, k:k + cols], u[:, k:k + cols]
+            t = np.full(ub.shape[:-1], np.inf)
+            tg = -ob[..., 2] / ub[..., 2]
+            t = np.where((ub[..., 2] < 0) & (tg > 0), tg, t)
+            bx = boxes[_seen(ob, ub, boxes[:, :4])]
+            if len(bx):                              # slabs, all at once
+                lo = np.stack([bx[:, 0], bx[:, 2], 0 * bx[:, 0]], -1)
+                hi = np.stack([bx[:, 1], bx[:, 3], bx[:, 4]], -1)
+                inv = 1.0 / ub[..., None, :]
+                ta = (lo - ob[..., None, :]) * inv
+                tb = (hi - ob[..., None, :]) * inv
+                tn = np.nanmax(np.minimum(ta, tb), axis=-1)
+                tf = np.nanmin(np.maximum(ta, tb), axis=-1)
+                tn = np.where((tn <= tf) & (tn > 0.05), tn, np.inf)
+                t = np.minimum(t, tn.min(axis=-1))
+            for cx, cy, r, hgt in poles[_seen(ob, ub, pole_rects)]:
+                dx, dy = ob[..., 0] - cx, ob[..., 1] - cy
+                a = ub[..., 0] ** 2 + ub[..., 1] ** 2
+                b = 2 * (dx * ub[..., 0] + dy * ub[..., 1])
+                c = dx * dx + dy * dy - r * r
+                disc = b * b - 4 * a * c
+                tc = (-b - np.sqrt(np.maximum(disc, 0))) / (2 * a)
+                z = ob[..., 2] + tc * ub[..., 2]
+                hit = (disc > 0) & (tc > 0.05) & (z >= 0) & (z <= hgt)
+                t = np.where(hit, np.minimum(t, tc), t)
+            out[:, k:k + cols] = t
+    return np.where(out < YARD_MAX_M, out, np.inf)
+
+
+def yard_scans(port, info, n_frames: int, seed: int = 4,
+               ramp: int = YARD_RAMP):
+    """n_frames LidarScans of `info` driving through the yard (frame ids
+    1..n_frames, 100 ms apart): every column ray-cast from the sensor pose
+    at its own time, so the scans carry the motion of the sweep; ranges
+    with 5 mm noise and 2 % dropouts, second returns 0.4-0.6 m behind on
+    15 % of the valid pixels where the profile has them, every column
+    valid. Returns (scans, ground truth): the world pose of each frame's
+    middle column, the pose the SLAM engine registers."""
+    lut = port.make_xyz_lut(info)
+    h, w = info.format.pixels_per_column, info.format.columns_per_frame
+    unit = np.linalg.norm(lut.direction, axis=-1, keepdims=True)
+    u_s = lut.direction / unit                      # (h, w, 3), sensor
+    rng = np.random.default_rng(seed)
+    mid = (w - 1) // 2
+    scans, truth = [], []
+    for k in range(n_frames):
+        P = yard_poses(k + np.arange(w) / w, ramp)   # a pose a column
+        R, p = P[:, :3, :3], P[:, :3, 3]
+        o = np.einsum("wij,hwj->hwi", R, lut.offset) + p[None]
+        u = np.einsum("wij,hwj->hwi", R, u_s)
+        t = _ray_cast(o, u)
+        r_mm = np.where(np.isfinite(t), t / unit[..., 0]
+                        + rng.normal(0.0, 5.0, t.shape), 0.0)
+        r_mm[rng.random(t.shape) < 0.02] = 0
+        r1 = np.clip(np.round(r_mm), 0, (1 << 19) - 1).astype(np.uint32)
+        scan = port.LidarScan(info)
+        scan.frame_id = k + 1
+        scan.status[:] = 1
+        ts0 = 10**9 + k * 100_000_000
+        scan.timestamp[:] = ts0 + np.arange(w, dtype=np.uint64) * (
+            100_000_000 // w)
+        scan.packet_timestamp[:] = ts0 + np.arange(
+            scan.packet_timestamp.size, dtype=np.uint64) * 1000
+        scan.field("RANGE")[:] = r1
+        if scan.has_field("RANGE2"):
+            r2 = r1 + rng.integers(400, 600, r1.shape).astype(np.uint32)
+            r2[(r1 == 0) | (rng.random(r1.shape) >= 0.15)] = 0
+            scan.field("RANGE2")[:] = np.minimum(r2, (1 << 19) - 1)
+        if scan.has_field("REFLECTIVITY"):
+            scan.field("REFLECTIVITY")[:] = rng.integers(
+                0, 256, (h, w)).astype(np.uint8)
+        scans.append(scan)
+        truth.append(P[mid])
+    return scans, np.stack(truth)
+
+
+def yard_capture(port, path: str, info, n_frames: int, seed: int = 4,
+                 ramp: int = YARD_RAMP):
+    """yard_scans written as a pcap through the port's own writers
+    (io/save.scan_to_packets, io/pcap.PcapWriter); returns the ground
+    truth."""
+    from ouster_sdk_tpu_torch.io.save import scan_to_packets
+
+    scans, truth = yard_scans(port, info, n_frames, seed, ramp)
+    write_capture(path, ((bytes(buf), int(scan.packet_timestamp[0])
+                          + p * 1000)
+                         for scan in scans
+                         for p, buf in enumerate(scan_to_packets(scan, info))))
+    return truth
 
 
 if __name__ == "__main__":

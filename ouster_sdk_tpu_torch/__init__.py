@@ -73,6 +73,14 @@ splits a batch over them (parallel.ShardedScanPipeline: the planar kernel
 on each device's shard), and sharded_multi_sensor_step /
 fuse_multi_sensor_clouds run per-sensor work on a 2-D mesh.
 
+SLAM: slam.SlamEngine(infos, SlamConfig(backend="device")).update(scans)
+registers each scan set with KISS-ICP and writes per-column poses back;
+the device backend (slam.DeviceICP) runs the Gauss-Newton loop on the
+device around a hand-written nearest-neighbour kernel
+(kernels/csrc/icp_nn.cu), the host backend (slam.KissICP) in numpy.
+normals_device and voxel_downsample_device are the device twins of the
+numpy normals and voxel_downsample.
+
 Entry points run on CUDA unless the caller names another device; without
 a GPU they raise instead of moving to the CPU.
 """
@@ -113,7 +121,10 @@ from .io.sources import (Collator, IoType, LidarScanSet, MultiScanSource,
                          open_source, populate_extrinsics)
 from .ops.bp64 import bp64_encode_numpy, project_bp64_batched
 from .ops.destagger import destagger, destagger_torch, stagger
+from .ops.downsample import voxel_downsample, voxel_downsample_device
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
+from .ops.normals import normals, scan_normals
+from .ops.normals_device import normals_device
 from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
                                   unpack_project_lutfree,
                                   unpack_project_lutfree_dd,
@@ -139,7 +150,9 @@ from .ops.xyzlut import (XYZLutDevice, cartesian, cartesian_dd,
 from .parallel import ShardedScanPipeline, make_mesh, make_mesh_2d
 from .sensor.http import (LONG_HTTP_REQUEST_TIMEOUT_SECONDS,
                           SHORT_HTTP_REQUEST_TIMEOUT_SECONDS, SensorHttp)
-from .state import lidar_scan_from_jax, lidar_scan_from_numpy
+from .state import (kiss_icp_from_numpy, lidar_scan_from_jax,
+                    lidar_scan_from_numpy)
+from . import slam
 
 
 def XYZLutFactory(info, use_extrinsics: bool = False):
@@ -205,6 +218,7 @@ __all__ = [
     "fused_pipelined",
     "get_field_types", "HeaderType", "ImuPacket", "init_logger",
     "interp_pose", "interp_pose_np", "interp_trajectory", "io_type",
+    "kiss_icp_from_numpy",
     "io_type_from_extension", "IoType", "launches", "lidar_scan_from_jax",
     "lidar_scan_from_numpy", "LidarMode", "LidarPacket", "LidarScan",
     "LidarScanSet", "LiveDeviceBatcher", "log_pose",
@@ -212,7 +226,8 @@ __all__ = [
     "lut_planes", "lutfree_supported",
     "make_decode_plan", "make_mesh", "make_mesh_2d",
     "make_osf_projector", "make_xyz_lut",
-    "make_xyz_lut_float", "MultiScanSource", "open_packet_source",
+    "make_xyz_lut_float", "MultiScanSource", "normals", "normals_device",
+    "open_packet_source",
     "open_source", "OsfDeviceProjector", "OsfScanSource", "OusterIoType",
     "Packet", "packed_range_fields", "PacketFormat", "PacketSource", "PacketWriter", "PcapPacketSource", "PcapReader",
     "PcapScanSource", "PcapWriter", "PipelineConfig", "PlanarBatch",
@@ -220,6 +235,7 @@ __all__ = [
     "project_bp64_batched", "project_packed_batched", "project_ranges",
     "project_ranges_batched", "reset_launches",
     "resolve_field_types", "ScanBatcher", "ScanPipeline", "ScanSource",
+    "scan_normals", "slam",
     "sensor_info_from_metadata", "SensorHttp", "SensorInfo", "Severity",
     "ShardedScanPipeline",
     "SHORT_HTTP_REQUEST_TIMEOUT_SECONDS", "Singler",
@@ -230,6 +246,7 @@ __all__ = [
     "unpack_project_lutfree", "unpack_project_lutfree_dd",
     "unpack_project_lutfree_planar", "unpack_project_packet",
     "unpack_project_packet_batched", "unpack_project_planar_batched",
+    "voxel_downsample", "voxel_downsample_device",
     "words_tensor", "XYZLut", "XYZLutDevice", "XYZLutFactory",
     "XYZLutFloat", "XYZLutFloatFactory", "ZonePacket",
 ]

@@ -1,0 +1,24 @@
+"""Mapping/SLAM namespace mirroring the reference's
+``ouster.sdk.mapping`` (ref: python/src/ouster/sdk/mapping/__init__.py):
+KISS-ICP odometry with a host backend (KissICP) and a device backend
+(DeviceICP, its Gauss-Newton loop on the device), the engines, deskew and
+time correction."""
+
+from .engine import (  # noqa: F401
+    LocalizationConfig,
+    LocalizationEngine,
+    SlamConfig,
+    SlamEngine,
+    determine_voxel_size,
+)
+from .deskew import (  # noqa: F401
+    ConstantVelocityDeskewMethod,
+    DeskewMethod,
+    DeskewMethodFactory,
+    InertialIntegrationImuDeskewMethod,
+    NoneDeskewMethod,
+    make_deskew_method,
+)
+from .time_correction import ActiveTimeCorrection  # noqa: F401
+from .kiss_icp import KissConfig, KissICP  # noqa: F401
+from .device_icp import DeviceICP, register_points_device  # noqa: F401

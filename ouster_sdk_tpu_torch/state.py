@@ -6,7 +6,9 @@ DecodePlan given as plain numpy / dict data (e.g. the reference package's
 implementations can be fed the same LUT, tables and plan; and a LidarScan
 given as numpy arrays, or as another implementation's scan object read
 through its public attributes, so two implementations' scans compare with
-`==`."""
+`==`; and a KISS-ICP odometry state (voxel map, adaptive threshold, frame
+count) given as numpy, so two implementations continue a trajectory from
+the same state."""
 
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from .ops.lutfree_kernels import FactorTables
 from .ops.planar_kernels import PlanarLut
 from .ops.unpack import DecodePlan, FieldPlan
 from .ops.xyzlut import XYZLutDevice
+from .slam.device_icp import DeviceICP
+from .slam.kiss_icp import KissConfig, KissICP
 
 
 def planar_lut_from_numpy(stack: np.ndarray, device) -> PlanarLut:
@@ -126,3 +130,37 @@ def lidar_scan_from_jax(info: SensorInfo, scan) -> LidarScan:
          **{k: getattr(scan, k) for k in _SCAN_SCALARS}},
         {str(ft.name): scan.field(ft.name) for ft in scan.field_types},
         field_types=fts)
+
+
+def kiss_icp_from_numpy(config: KissConfig, points: np.ndarray,
+                        keys: np.ndarray, model_sse: float,
+                        num_samples: int, frame_count: int,
+                        backend: str = "host", device=None) -> KissICP:
+    """The port's KissICP (backend "host") or DeviceICP ("device", on
+    `device`: CUDA unless named) in the state another implementation's
+    odometry is in: the voxel map's points (P, 3) with each point's packed
+    voxel key (P,) int64 (`ops.downsample.pack_voxel_coords`; voxels keep
+    the order of their first point, points their order within a voxel),
+    AdaptiveThreshold's `_model_sse` and `_num_samples`, and
+    `_frame_count`. From the JAX package's KissICP or JaxICP `k`:
+    `keys = np.concatenate([np.full(len(v), key) for key, v in
+    k.local_map._voxels.items()])`, `points = k.local_map.pointcloud()`."""
+    if backend not in ("host", "device"):
+        raise ValueError(f"unknown backend {backend!r}; expected 'host' or "
+                         f"'device'")
+    icp = (DeviceICP(config, device=device) if backend == "device"
+           else KissICP(config))
+    points = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
+    if keys.shape[0] != points.shape[0]:
+        raise ValueError(f"{points.shape[0]} points but {keys.shape[0]} "
+                         f"keys")
+    voxels = icp.local_map._voxels
+    uniq, first, inverse = np.unique(keys, return_index=True,
+                                     return_inverse=True)
+    for u in np.argsort(first, kind="stable"):
+        voxels[int(uniq[u])] = points[inverse == u].copy()
+    icp.adaptive_threshold._model_sse = float(model_sse)
+    icp.adaptive_threshold._num_samples = int(num_samples)
+    icp._frame_count = int(frame_count)
+    return icp

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (kernels/csrc/planar_project.cu,
-packet_project.cu and lutfree_project.cu) against their plain PyTorch
-versions on the card. Needs an NVIDIA GPU and skips without one.
+packet_project.cu, lutfree_project.cu and icp_nn.cu) against their plain
+PyTorch versions on the card. Needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -27,7 +27,12 @@ released frame. Wire stagings: unpack_bits and the BP64 decode on the card
 equal the CPU's, project_packed_batched / project_bp64_batched launch
 planar_project once a call with XYZ bit-equal to the planar path (and with
 poses to the CPU's plain route); ShardedScanPipeline.project on a mesh of
-the one card launches once a shard, bit-equal to project_planar."""
+the one card launches once a shard, bit-equal to project_planar. SLAM:
+icp_nn's kernel gives the indices and the bits of icp_nn_reference, on the
+card and on the CPU; register_points_device on the card is within 1e-4 m
+of the CPU and gives the same bits with TF32 allowed; the SLAM engine's
+device backend launches icp_nn once a Gauss-Newton iteration; normals and
+voxel downsampling on the card agree with the CPU within stated bounds."""
 
 import numpy as np
 import pytest
@@ -925,3 +930,179 @@ def test_sharded_project_on_a_one_card_mesh(cuda):
             assert all(s.device.type == "cuda" for s in g.shards)
             assert torch.equal(g.join().view(torch.int32),
                                w.view(torch.int32))
+
+
+# -- SLAM on the card: icp_nn, register_points_device, normals, downsample ----
+
+def _world(n: int = 4000, seed: int = 0) -> np.ndarray:
+    """Two walls, a floor and clutter (the JAX package's SLAM test scene)."""
+    rng = np.random.default_rng(seed)
+    q = n // 4
+    return np.concatenate([
+        np.stack([rng.uniform(5, 30, q), 8.0 + rng.normal(0, 0.01, q),
+                  rng.uniform(0, 4, q)], axis=1),
+        np.stack([25.0 + rng.normal(0, 0.01, q), rng.uniform(-10, 8, q),
+                  rng.uniform(0, 4, q)], axis=1),
+        np.stack([rng.uniform(5, 30, q), rng.uniform(-10, 8, q),
+                  rng.normal(0, 0.01, q)], axis=1),
+        rng.uniform([5, -10, 0], [30, 8, 4], size=(q, 3))])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,m,masked", [(1000, 30000, False),
+                                        (6000, 200000, True), (1, 7, False)])
+def test_icp_nn_matches_plain_on_the_card(cuda, n, m, masked):
+    """icp_nn's kernel against icp_nn_reference on the same card tensors:
+    indices equal, distances bit-equal, one launch a call."""
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+
+    rng = np.random.default_rng(n)
+    world = _world(max(m, 4), seed=1)[:m]
+    src = world[rng.integers(0, m, n)] + rng.normal(0, 0.3, (n, 3))
+    src_t = torch.from_numpy(src.astype(np.float32)).to(cuda)
+    map_t = torch.from_numpy(world.astype(np.float32)).to(cuda)
+    valid = (torch.from_numpy(rng.random(m) > 0.3).to(cuda) if masked
+             else None)
+    for voxel in (0.5, 1.0):
+        nn.reset_launches()
+        d2, idx = nn.icp_nn(src_t, map_t, valid, voxel)
+        assert nn.launches["icp_nn"] == 1
+        want_d2, want_idx = nn.icp_nn_reference(src_t, map_t, valid, voxel)
+        assert torch.equal(idx, want_idx)
+        assert torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
+        assert bool(torch.isfinite(d2).any())
+        # the CPU's plain version agrees too
+        cpu = nn.icp_nn(src_t.cpu(), map_t.cpu(),
+                        None if valid is None else valid.cpu(), voxel)
+        assert torch.equal(idx.cpu(), cpu[1])
+        assert torch.equal(d2.cpu().view(torch.int32),
+                           cpu[0].view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_icp_nn_edge_cases_and_refusals(cuda):
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+
+    src = torch.randn(5, 3, device=cuda)
+    d2, idx = nn.icp_nn(src, torch.zeros((0, 3), device=cuda), None, 1.0)
+    assert torch.isinf(d2).all() and (idx == 0).all()
+    far = torch.full((3, 3), 100.0, device=cuda)
+    d2, idx = nn.icp_nn(src, far, None, 1.0)       # no candidate
+    assert torch.isinf(d2).all() and (idx == 0).all()
+    nn.reset_launches()
+    d2, idx = nn.icp_nn(torch.zeros((0, 3), device=cuda), far, None, 1.0)
+    assert d2.shape == (0,) and nn.launches["icp_nn"] == 0
+    with pytest.raises(ValueError):
+        nn.icp_nn(src.double(), far, None, 1.0)
+    with pytest.raises(ValueError):
+        nn.icp_nn(src, far.cpu(), None, 1.0)
+    with pytest.raises(ValueError):
+        nn.icp_nn(src, far[:, :2].contiguous(), None, 1.0)
+    with pytest.raises(ValueError):
+        nn.icp_nn(src, far, None, 0.0)
+
+
+@pytest.mark.cuda
+def test_register_points_device_on_the_card_matches_the_cpu(cuda):
+    """register_points_device on the card against the CPU: translation
+    within 1e-4 m and rotation within 1e-5 (sums in another order on the
+    card); with allow_tf32 the card gives the same bits."""
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam.device_icp import register_points_device
+    from ouster_sdk_tpu_torch.slam.kiss_icp import VoxelHashMap, se3_exp
+
+    world = _world()
+    vm = VoxelHashMap(1.0, 200.0, 20)
+    vm.add_points(world)
+    T = se3_exp(np.array([0.3, -0.2, 0.1, 0.02, -0.01, 0.03]))
+    scan = ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    mp = vm.pointcloud().astype(np.float32)
+
+    def run(device):
+        st = {}
+        out = register_points_device(
+            torch.from_numpy(scan).to(device), None,
+            torch.from_numpy(mp).to(device), None,
+            torch.eye(4, device=device), 1.0, 0.3, voxel_size=1.0,
+            stats=st)
+        return out.cpu().numpy(), st
+
+    nn.reset_launches()
+    got, st = run(cuda)
+    assert nn.launches["icp_nn"] == st["iterations"] > 0
+    want, _ = run("cpu")
+    assert np.linalg.norm(got[:3, 3] - want[:3, 3]) <= 1e-4
+    assert np.abs(got[:3, :3] - want[:3, :3]).max() <= 1e-5
+    assert np.linalg.norm(got[:3, 3] - T[:3, 3]) < 0.02
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        again, _ = run(cuda)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    assert np.array_equal(again, got)
+
+
+@pytest.mark.cuda
+def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
+    """open_source -> SlamEngine(backend="device") on a small yard capture:
+    every registration launches icp_nn once an iteration, and the device
+    trajectory stays within 0.05 m of the host backend's."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam import SlamConfig, SlamEngine
+
+    info = cs.synth_info(cs.MAIN_PROFILE, w=512, h=32)
+    path = str(tmp_path / "yard.pcap")
+    cs.yard_capture(pt, path, info, 6)
+    poses = {}
+    for backend in ("device", "host"):
+        eng = SlamEngine([info], SlamConfig(backend=backend, voxel_size=1.0))
+        nn.reset_launches()
+        iters, out = 0, []
+        for scans in pt.open_source(path, sensor_info=[info]):
+            eng.update(scans)
+            out.append(eng.last_pose.copy())
+            iters += getattr(eng._kiss, "last_frame", {}).get("iterations",
+                                                              0)
+        poses[backend] = np.stack(out)
+        if backend == "device":
+            assert eng.device.type == "cuda"
+            assert nn.launches["icp_nn"] == iters > 0
+    assert np.abs(poses["device"][:, :3, 3]
+                  - poses["host"][:, :3, 3]).max() <= 0.05
+
+
+@pytest.mark.cuda
+def test_normals_and_downsample_on_the_card_match_the_cpu(cuda):
+    """normals_device (f32) on the card against the CPU: at most 0.1 % of
+    the pixels differ by more than 1e-5 (transcendentals and division by a
+    scalar round differently there, which can flip a neighbour decision);
+    voxel_downsample_device: the same mask, centroids within 4 f32 ulp of
+    32 m (atomics sum in no fixed order)."""
+    from ouster_sdk_tpu_torch.ops.downsample import voxel_downsample_device
+    from ouster_sdk_tpu_torch.ops.normals_device import normals_device
+
+    h, w = 32, 256
+    rng = np.random.default_rng(3)
+    alt = np.deg2rad(np.linspace(20, -20, h))[:, None]
+    az = (2 * np.pi * np.arange(w) / w)[None, :]
+    d = np.stack([np.cos(alt) * np.cos(az), np.cos(alt) * np.sin(az),
+                  np.broadcast_to(np.sin(alt), (h, w))], axis=-1)
+    r = (8000 + 2000 * np.sin(3 * az) + rng.integers(0, 50, (h, w))
+         ).astype(np.uint32)
+    r[rng.random((h, w)) < 0.03] = 0
+    xyz = (d * (r[..., None] * 0.001)).astype(np.float32)
+    origins = np.zeros((w, 3), np.float32)
+    got, none = normals_device(xyz, r, origins)
+    assert none is None and got.device.type == "cuda"
+    want, _ = normals_device(xyz, r, origins, device="cpu")
+    diff = (got.cpu() - want).abs().amax(dim=-1)
+    assert int((diff > 1e-5).sum()) <= 0.001 * h * w
+    pts = torch.from_numpy(rng.uniform(-30, 30, (20000, 3))
+                           .astype(np.float32))
+    c_gpu, m_gpu = voxel_downsample_device(pts.to(cuda), 1.0, 32768)
+    c_cpu, m_cpu = voxel_downsample_device(pts, 1.0, 32768)
+    assert torch.equal(m_gpu.cpu(), m_cpu)
+    assert float((c_gpu.cpu() - c_cpu).abs().max()) <= 4 * float(
+        np.spacing(np.float32(32.0)))

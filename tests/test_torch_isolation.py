@@ -301,6 +301,68 @@ def test_osf_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_slam_normals_downsample_run_with_jax_unimportable(tmp_path):
+    """open_source -> SlamEngine on both backends (the device one on the
+    CPU), kiss_icp_from_numpy, normals_device, scan_normals,
+    voxel_downsample_device, pose_util and profiling, with jax and the JAX
+    package made unimportable."""
+    code = textwrap.dedent(f"""
+        import os, sys
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np, torch
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        from ouster_sdk_tpu_torch import slam
+        from ouster_sdk_tpu_torch.utils import pose_util, profiling
+        info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
+        path = {str(tmp_path / "yard.pcap")!r}
+        cs.yard_capture(pt, path, info, 4)
+        poses = {{}}
+        for backend in ("host", "device"):
+            eng = slam.SlamEngine([info], slam.SlamConfig(
+                backend=backend, voxel_size=1.0), device="cpu")
+            for scans in pt.open_source(path, sensor_info=[info],
+                                        device="cpu"):
+                eng.update(scans)
+            poses[backend] = eng.last_pose
+        assert np.abs(poses["host"] - poses["device"]).max() < 1e-3
+        k = eng._kiss
+        keys = np.concatenate([np.full(len(v), key)
+                               for key, v in k.local_map._voxels.items()])
+        twin = pt.kiss_icp_from_numpy(
+            k.config, k.local_map.pointcloud(), keys,
+            k.adaptive_threshold._model_sse,
+            k.adaptive_threshold._num_samples, k._frame_count,
+            backend="device", device="cpu")
+        assert np.array_equal(twin.local_map.pointcloud(),
+                              k.local_map.pointcloud())
+        scan = scans[0]
+        pt.scan_normals(scan, info, backend="device", device="cpu")
+        assert scan.field("NORMALS").shape == (16, 256, 3)
+        assert scan.has_field("NORMALS2")
+        xyz = pt.make_xyz_lut(info)(scan.field("RANGE")).reshape(-1, 3)
+        cent, mask = pt.voxel_downsample_device(
+            torch.from_numpy(xyz.astype(np.float32)), 0.5, 4096)
+        assert 0 < int(mask.sum()) < 4096
+        T = pose_util.exp_pose6([0.1, 0.0, 0.2, 1.0, 2.0, 3.0],
+                                device="cpu")
+        assert np.allclose(pose_util.log_pose(T, device="cpu"),
+                           [0.1, 0.0, 0.2, 1.0, 2.0, 3.0], atol=1e-5)
+        with profiling.device_trace(os.path.dirname(path)) as d:
+            torch.ones(4).sum()
+        assert os.path.exists(os.path.join(d, "trace.json"))
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     _, pinfo = infos(DUAL)
     if torch.cuda.is_available():
@@ -364,6 +426,20 @@ def test_cpu_tensors_launch_no_lutfree_kernel():
     pt.unpack_project_lutfree_planar(words(planes), words(hdrs), tables,
                                      plan)
     assert all(n == 0 for n in lf.launches.values())
+
+
+def test_cpu_tensors_launch_no_icp_nn_kernel():
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam.device_icp import register_points_device
+
+    rng = np.random.default_rng(0)
+    pts = torch.from_numpy(rng.uniform(0, 10, (300, 3)).astype(np.float32))
+    nn.reset_launches()
+    assert set(nn.launches) == set(nn.CASES)
+    nn.icp_nn(pts, pts, None, 1.0)
+    register_points_device(pts + 0.05, None, pts, None, torch.eye(4), 1.0,
+                           0.3, voxel_size=1.0)
+    assert all(n == 0 for n in nn.launches.values())
 
 
 def test_wrapper_rejects_other_devices_and_precisions():
