@@ -83,18 +83,25 @@ surfaces 5-80 m away) at 128x2048 dual, every column ray-cast from the
 sensor's pose at its own time while a vehicle speeds up from rest to 1 m
 and 1 degree a frame, written with io/save.scan_to_packets and the pcap
 writer -> open_source -> SlamEngine(SlamConfig(backend="device")) (the
-Gauss-Newton loop on the card around the icp_nn kernel) -> per-column poses
-in each scan, and the host backend in turns; the device trajectory is held
-to the ground truth (translation delta <= 0.05 m a frame once the vehicle
-cruises) and to the host one (<= 0.05 m), a run with TF32 allowed to the
-same bits, and the run's launches to its Gauss-Newton iterations; scans/s
-of both backends and the layers (gather, preprocess, voxelize, map copy,
-icp_nn, Gauss-Newton step and syncs, map update) are printed. Then icp_nn
-is held bit-equal (indices and distances) to its plain version at the
-SLAM run's largest map and at 8192 x 524288 yard points, with
-torch.cdist + min timed beside it as context; scan_normals(backend=
-"device") against the numpy normals on yard scans; and
-voxel_downsample_device against the numpy voxel_downsample.
+Gauss-Newton loop on the card around the icp_nn kernels: the map's voxel
+index built once a registration, one search an iteration) -> per-column
+poses in each scan, and the host backend in turns; the device trajectory
+is held to the ground truth (translation delta <= 0.05 m a frame once the
+vehicle cruises) and to the host one (<= 0.05 m), a run with TF32 allowed
+to the same bits, the run's search launches to its Gauss-Newton
+iterations and its index builds to its registrations; scans/s of both
+backends and the layers (gather, preprocess, voxelize, map copy, icp_nn
+search and index, Gauss-Newton step and syncs, map update) are printed.
+Then icp_nn is held bit-equal (indices and distances), with a prebuilt
+index and in the one call, to its plain version at the SLAM run's largest
+map, at 8192 x 524288 yard points and on dense, tied, masked, empty and
+saturated inputs, its search, index build and one call timed on the
+card, with torch.cdist + min timed beside it as context;
+scan_normals(backend="device") against the numpy normals on yard scans;
+and voxel_downsample_device against the numpy voxel_downsample. Last, the
+zone phase renders 16 box zones at 128x2048 with the port's zone model
+and holds zone_occupancy_device on the card to the numpy zone_occupancy
+over the yard's range images, and times it a scan.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -126,7 +133,8 @@ same bytes, held byte-equal, and the frames/s of the six paths.
 
 Prints the card's name and power limit, a `kernels` JSON line of thirteen
 entries (the last, icp_nn, replaces an XLA-fused search that has no Pallas
-kernel), and last
+kernel; its entry adds the index build's time, bound and launches), and
+last
 a JSON object with "ok". Exits non-zero, with no result, when CUDA is
 unavailable or any phase fails.
 """
@@ -436,6 +444,43 @@ def cuda_ms(fn, iters: int = 50, windows: int = 7, warm: int = 5):
             fn()
         end.record()
         torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), min(times), max(times)
+
+
+def device_ms(fn, iters: int = 20, windows: int = 5, warm: int = 3):
+    """Median, min and max over `windows` of the device time of `iters`
+    back-to-back calls, in ms per call, with the host's issue taken out: a
+    spin kernel (torch.cuda._sleep) holds the stream while the host issues
+    the calls, so the card runs them without a gap. Each window checks that
+    the issue ended before the spin did, and doubles the spin if not."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22                          # ~2 ms at the card's clock
+    times = []
+    while len(times) < windows:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        spun = torch.cuda.Event(enable_timing=True)
+        first = torch.cuda.Event(enable_timing=True)
+        first.record()
+        torch.cuda._sleep(cycles)
+        spun.record()
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        issue_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if issue_ms >= 0.8 * first.elapsed_time(spun):
+            cycles *= 2                       # the card waited on the host
+            if cycles > 1 << 34:
+                raise RuntimeError("device_ms: the host never got ahead")
+            continue
         times.append(start.elapsed_time(end) / iters)
     return float(np.median(times)), min(times), max(times)
 
@@ -903,6 +948,9 @@ def _run(torch, port, pk, dev, tmp) -> int:
     _run_downsample(torch, port, dev, slam["info"], slam["scans"])
     print(f"slam, icp nn, normals and voxel downsample phases: "
           f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    _run_zone(torch, port, dev, slam["info"], slam["scans"])
+    print(f"zone phase: {time.perf_counter() - t0:.1f} s")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -3362,18 +3410,31 @@ def _run_slam(torch, port, dev, tmp) -> dict:
                  ("map pointcloud", ki.VoxelHashMap, "pointcloud"),
                  ("register_points_device", di, "register_points_device"),
                  ("map update", ki.VoxelHashMap, "update"))
-    events, largest, gathered = [], {}, []
+    events, index_events, largest, gathered = [], [], {}, []
 
-    def timed_nn(src, map_pts, map_valid, voxel_size):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = nn.icp_nn(src, map_pts, map_valid, voxel_size)
-        end.record()
-        events.append((start, end))
+    def timed(fn, into):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            into.append((start, end))
+            return out
+        return call
+
+    searches = {}      # id(index) -> (index, the queries of its searches)
+
+    def timed_nn(src, *args, index=None, **kwargs):
+        out = timed(nn.icp_nn, events)(src, *args, index=index, **kwargs)
+        if index is not None:
+            searches.setdefault(id(index), (index, []))[1].append(
+                src.clone())
+        map_pts = index.map_pts if index is not None else args[0]
         if map_pts.shape[0] > largest.get("m", -1):
             largest.update(m=map_pts.shape[0], src=src.clone(),
-                           map=map_pts, voxel=voxel_size)
+                           map=map_pts, voxel=index.voxel_size
+                           if index is not None else args[2])
         return out
 
     gather = se.SlamEngine._gather_frame
@@ -3431,6 +3492,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     dev_poses, frames, secs = drive("device", keep=(YARD_RAMP,
                                                     SLAM_FRAMES - 1))
     launches = nn.launches["icp_nn"]
+    index_launches = nn.launches["icp_nn_index"]
     runs["device"].append(secs)
     host_poses, _, secs = drive("host")
     runs["host"].append(secs)
@@ -3439,6 +3501,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
         di.icp_nn = timed_nn
+        di.build_icp_index = timed(nn.build_icp_index, index_events)
         se.SlamEngine._gather_frame = kept_gather
         for c in counters:
             c.__enter__()
@@ -3450,6 +3513,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
             c.__exit__()
         se.SlamEngine._gather_frame = gather
         di.icp_nn = nn.icp_nn
+        di.build_icp_index = nn.build_icp_index
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.synchronize()
     runs["device"].append(secs)
@@ -3459,6 +3523,10 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     check(launches > 0, "the SLAM path never launched icp_nn")
     check(launches == sum(f["iterations"] for f in frames),
           f"icp_nn launches {launches} != GN iterations")
+    registrations = sum(1 for f in frames if f["m"] > 0)
+    check(index_launches == registrations,
+          f"icp_nn index builds {index_launches} != registrations "
+          f"{registrations}")
     check(np.array_equal(tf32_poses, dev_poses),
           "the device trajectory changed with allow_tf32 = True")
     check(len(frame_syncs) == SLAM_FRAMES,
@@ -3491,6 +3559,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     check(worst <= 0.05, f"device trajectory {worst} m from the host one")
     print(f"slam: device trajectory within {worst:.5f} m of the host one; "
           f"TF32 run bit-equal; {launches} icp_nn launches, "
+          f"{index_launches} index builds ({registrations} registrations), "
           f"{sum(syncs)} host syncs in "
           f"{SLAM_FRAMES} frames")
     for name, vals in runs.items():
@@ -3502,6 +3571,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
               f"[{CARD}]")
         FPS[f"slam {name}"] = SLAM_FRAMES / vals[0]
     nn_ms = sum(s.elapsed_time(e) for s, e in events)
+    index_ms = sum(s.elapsed_time(e) for s, e in index_events)
     reg = counters[[n for n, _, _ in layer_fns].index(
         "register_points_device")]
     upload = sum(f["upload_s"] for f in frames) * 1e3
@@ -3510,62 +3580,194 @@ def _run_slam(torch, port, dev, tmp) -> dict:
               f"ms/frame ({c.n} calls)")
     print(f"slam layer map upload (pointcloud + copy, first device run): "
           f"{upload / SLAM_FRAMES:.3f} ms/frame")
-    print(f"slam layer icp_nn (CUDA events): {nn_ms / SLAM_FRAMES:.3f} "
-          f"ms/frame over {len(events)} launches; GN step and syncs "
-          f"(register_points_device - icp_nn): "
-          f"{(reg.seconds * 1e3 - nn_ms) / SLAM_FRAMES:.3f} ms/frame")
-    return dict(launches=launches, largest=largest, gathered=gathered,
-                frames=frames, info=info, scans=kept)
+    # the same searches and builds replayed with the host's issue taken out:
+    # the card's own time a frame
+    replay_ms = sum(device_ms(
+        lambda ix=ix, qs=qs: [nn.build_icp_index(ix.map_pts, ix.map_valid,
+                                                 ix.voxel_size)]
+        + [nn.icp_nn(q, index=ix) for q in qs], iters=1, windows=3,
+        warm=1)[0] for ix, qs in searches.values())
+    print(f"slam layer icp_nn, device time (the run's {len(searches)} index "
+          f"builds and {sum(len(q) for _, q in searches.values())} searches "
+          f"replayed, device_ms): {replay_ms / SLAM_FRAMES:.4f} ms/frame "
+          f"[{CARD}]")
+    print(f"slam layer icp_nn (CUDA events around each call, host issue "
+          f"included): search "
+          f"{nn_ms / SLAM_FRAMES:.4f} ms/frame over {len(events)} launches, "
+          f"index {index_ms / SLAM_FRAMES:.4f} ms/frame over "
+          f"{len(index_events)} builds, together "
+          f"{(nn_ms + index_ms) / SLAM_FRAMES:.4f} ms/frame; GN step and "
+          f"syncs (register_points_device - icp_nn - index): "
+          f"{(reg.seconds * 1e3 - nn_ms - index_ms) / SLAM_FRAMES:.3f} "
+          f"ms/frame")
+    return dict(launches=launches, index_launches=index_launches,
+                largest=largest, gathered=gathered, frames=frames,
+                info=info, scans=kept)
 
 
-def _candidate_pairs(torch, nn, src, map_pts, voxel) -> int:
+def _candidate_pairs(torch, nn, src, map_pts, voxel):
     """The (query, map point) pairs whose voxels lie within Chebyshev
     distance 1: the pairs the function needs to look at on these inputs,
-    whatever the search (the kernel looks at all N x M)."""
+    whatever the search (the kernel reads these alone); and the most of
+    them any one query has."""
     sv = nn._voxels(src, voxel)
-    pairs = 0
+    per_query = torch.zeros(src.shape[0], dtype=torch.int64,
+                            device=src.device)
     for k in range(0, map_pts.shape[0], 8192):
         mv = nn._voxels(map_pts[k:k + 8192], voxel)
-        pairs += int(((sv[:, None] - mv[None]).abs() <= 1).all(dim=-1).sum())
-    return pairs
+        per_query += ((sv[:, None] - mv[None]).abs() <= 1).all(dim=-1) \
+            .sum(dim=1)
+    most = int(per_query.max()) if per_query.numel() else 0
+    return int(per_query.sum()), most
 
 
 def _icp_nn_times(torch, nn, src, map_pts, voxel):
-    """The kernel against the plain version on the card: equal indices and
-    bit-equal distances, the kernel's time (median of 7 CUDA-event
-    windows), the plain version's and the bound: the larger of the bytes
-    (each point read once, each result written once) over the HBM rate
-    and 17 operations (8 for d2, 9 for the voxel test) for each candidate
-    pair over the no-FMA f32 rate. The brute-force figure, N x M pairs,
-    is what the kernel's design does, not what the function needs; it is
-    returned beside the bound."""
+    """The kernels against the plain version on the card, in both forms (a
+    prebuilt index, and the one call that builds its own): equal indices
+    and bit-equal distances; then three times (median of 7 CUDA-event
+    windows): the search with a prebuilt index (what a Gauss-Newton
+    iteration pays), the index build (once a registration) and the one
+    call; the plain version's time; and the bounds. The search's bound is
+    the function's: the larger of the bytes (each point read once, each
+    result written once) over the HBM rate and 17 operations (8 for d2, 9
+    for the voxel test) for each candidate pair over the no-FMA f32 rate.
+    Times are device times (device_ms), the host's issue taken out.
+    The build's bound is its bytes: the points read once, the
+    packed points, the table and its starts written once. The brute-force
+    figure, N x M pairs, is returned beside them."""
     n, m = src.shape[0], map_pts.shape[0]
-    got = nn.icp_nn(src, map_pts, None, voxel)
     want = nn.icp_nn_reference(src, map_pts, None, voxel)
-    torch.cuda.synchronize()
-    check(torch.equal(got[1], want[1]),
-          f"icp_nn N={n} M={m}: {int((got[1] != want[1]).sum())} indices "
-          f"differ from the plain version")
-    check(torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)),
-          f"icp_nn N={n} M={m}: distances not bit-equal")
+    index = nn.build_icp_index(map_pts, None, voxel)
+    for form, got in (("prebuilt index", nn.icp_nn(src, index=index)),
+                      ("one call", nn.icp_nn(src, map_pts, None, voxel))):
+        torch.cuda.synchronize()
+        check(torch.equal(got[1], want[1]),
+              f"icp_nn N={n} M={m} ({form}): "
+              f"{int((got[1] != want[1]).sum())} indices differ from the "
+              f"plain version")
+        check(torch.equal(got[0].view(torch.int32),
+                          want[0].view(torch.int32)),
+              f"icp_nn N={n} M={m} ({form}): distances not bit-equal")
     fin = torch.isfinite(got[0])
     err = float((got[0][fin] - want[0][fin]).abs().max()) \
         if bool(fin.any()) else 0.0
-    ms, lo, hi = cuda_ms(lambda: nn.icp_nn(src, map_pts, None, voxel),
-                         iters=5)
+    ms, lo, hi = device_ms(lambda: nn.icp_nn(src, index=index))
+    index_ms, index_lo, index_hi = device_ms(
+        lambda: nn.build_icp_index(map_pts, None, voxel))
+    one_ms = device_ms(lambda: nn.icp_nn(src, map_pts, None, voxel))[0]
+    issue_ms = cuda_ms(lambda: nn.icp_nn(src, index=index), iters=20)[0]
     plain_ms = cuda_ms(lambda: nn.icp_nn_reference(src, map_pts, None,
                                                    voxel),
                        iters=1, windows=3, warm=1)[0]
-    pairs = _candidate_pairs(torch, nn, src, map_pts, voxel)
+    pairs, most = _candidate_pairs(torch, nn, src, map_pts, voxel)
     nbytes = n * 12 + m * 12 + n * 12
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = pairs * 17 / PEAK_F32_NO_FMA_PER_S * 1e3
+    slots = nn.table_slots(m)
+    index_bytes = m * 12 + m * 16 + slots * 20
+    cells = int((index.cells[:, 3] > 0).sum()) if index.cells is not None \
+        else -1                               # (a rehearsal on the CPU)
     return dict(max_abs_err=err, ms=ms, lo=lo, hi=hi, plain_ms=plain_ms,
                 bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                pairs=pairs,
+                pairs=pairs, most=most,
                 brute_ms=n * m * 17 / PEAK_F32_NO_FMA_PER_S * 1e3,
-                with_candidate=int(fin.sum()))
+                with_candidate=int(fin.sum()), index_ms=index_ms,
+                index_lo=index_lo, index_hi=index_hi,
+                index_bound_ms=index_bytes / PEAK_BYTES_PER_S * 1e3,
+                one_ms=one_ms, slots=slots, cells=cells, issue_ms=issue_ms)
+
+
+def _icp_nn_line(n, m, t) -> str:
+    return (f"icp_nn N={n} M={m} (device time, median of 5 windows of 20 "
+            f"calls): search (prebuilt index) {t['ms']:.4f} ms (min "
+            f"{t['lo']:.4f}, max {t['hi']:.4f}; {t['issue_ms']:.4f} ms a "
+            f"call back to back, host issue included), "
+            f"bound {t['bound_ms']:.5f} ms ({t['bound_by']}; {t['pairs']} "
+            f"candidate pairs, {t['pairs'] / max(n, 1):.0f} a query, at "
+            f"most {t['most']}), "
+            f"{t['bound_ms'] / t['ms']:.2%} of bound; index build "
+            f"{t['index_ms']:.4f} ms (min {t['index_lo']:.4f}, max "
+            f"{t['index_hi']:.4f}; {t['cells']} voxels in {t['slots']} slots)"
+            f", bytes bound {t['index_bound_ms']:.5f} ms, "
+            f"{t['index_bound_ms'] / t['index_ms']:.2%} of it; one call "
+            f"(build + search) {t['one_ms']:.4f} ms; plain "
+            f"{t['plain_ms']:.3f} ms; the brute-force N x M operation "
+            f"figure {t['brute_ms']:.4f} ms; indices equal, distances "
+            f"bit-equal in both forms ({t['with_candidate']} of {n} with a "
+            f"candidate) [{CARD}]")
+
+
+def icp_nn_cases(seed: int = 0):
+    """Inputs (name, src, map_pts, map_valid, voxel) at which icp_nn must
+    equal icp_nn_reference bit for bit: dense cells (500 points in one
+    voxel), duplicated map points at equal distance under several indices,
+    masked points, queries with no candidate, voxels saturated at the int32
+    limits and at a wrapped distance of 2**31 (the reference's int32
+    |a - b| <= 1 pairs them), voxel sizes of 0.05 and 2.0 m, N = 0, M = 0
+    and an all-invalid map. numpy f32 arrays; map_valid bool or None."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    world = rng.uniform(-6, 6, (3000, 3)).astype(f32)
+    src = (world[rng.integers(0, 3000, 700)]
+           + rng.normal(0, 0.4, (700, 3))).astype(f32)
+    dense = (0.05 + rng.uniform(0, 0.9, (500, 3))).astype(f32)
+    dense = np.concatenate([dense, dense[:40] + f32(1.0)])
+    dup = np.repeat(rng.uniform(-2, 2, (40, 3)).astype(f32), 6, axis=0)
+    dup = dup[rng.permutation(len(dup))]
+    sym = np.array([[1.5, .5, .5], [-.5, .5, .5], [.5, 1.5, .5],
+                    [.5, -.5, .5], [.5, .5, 1.5], [.5, .5, -.5]], f32)
+    sym = np.concatenate([sym, sym[::-1]])
+    big = np.array([[3e9, .5, .5], [-3e9, .5, .5], [-3e9, -3e9, 3e9],
+                    [2**30, .5, .5], [2**30, 2**30, .5], [.5, -3e9, .5],
+                    [1e12, 1e12, -1e12]], f32)
+    big_q = np.array([[.5, .5, .5], [3e9, .4, .5], [-3e9, .5, .6],
+                      [-2**30, .5, .5], [-2**30, -2**30, .5],
+                      [1e12, 1e12, -1e12], [-1e12, .5, .5], [.5, .5, 9]],
+                     f32)
+    fine = (world[rng.integers(0, 3000, 700)]
+            + rng.normal(0, 0.03, (700, 3))).astype(f32)
+    return [
+        ("random, voxel 0.05", fine, world, None, 0.05),
+        ("random, voxel 2.0", src, world, None, 2.0),
+        ("masked", src, world, rng.random(3000) > 0.35, 1.0),
+        ("dense cell", rng.uniform(-0.5, 2.5, (300, 3)).astype(f32), dense,
+         None, 1.0),
+        ("ties", np.concatenate([dup[:60], dup[:60] + f32(0.25)]), dup,
+         None, 1.0),
+        ("symmetric ties", np.full((3, 3), 0.5, f32), sym, None, 1.0),
+        ("no candidate", rng.uniform(-1, 1, (50, 3)).astype(f32),
+         np.full((5, 3), 100, f32), None, 1.0),
+        ("saturated and wrapped voxels", big_q, big, None, 1.0),
+        ("wrapped voxels alone", big_q[:5], big[[1, 2, 4]], None, 1.0),
+        ("N = 0", np.zeros((0, 3), f32), world, None, 1.0),
+        ("M = 0", src[:20], np.zeros((0, 3), f32), None, 1.0),
+        ("all invalid", src[:20], world, np.zeros(3000, bool), 1.0),
+    ]
+
+
+def _icp_nn_cases_on_card(torch, nn, dev) -> str:
+    """Every icp_nn_cases input on the card, both forms, against the plain
+    version on the card: equal indices and bit-equal distances."""
+    held = []
+    for name, src, mp, valid, voxel in icp_nn_cases():
+        s = torch.from_numpy(src).to(dev)
+        m = torch.from_numpy(mp).to(dev)
+        v = None if valid is None else torch.from_numpy(valid).to(dev)
+        want = nn.icp_nn_reference(s, m, v, voxel)
+        for form, got in (
+                ("prebuilt index",
+                 nn.icp_nn(s, index=nn.build_icp_index(m, v, voxel))),
+                ("one call", nn.icp_nn(s, m, v, voxel))):
+            torch.cuda.synchronize()
+            check(torch.equal(got[1], want[1])
+                  and torch.equal(got[0].view(torch.int32),
+                                  want[0].view(torch.int32)),
+                  f"icp_nn case {name!r} ({form}): differs from the plain "
+                  f"version")
+        held.append(f"{name} ({int(torch.isfinite(want[0]).sum())}/"
+                    f"{src.shape[0]})")
+    return "; ".join(held)
 
 
 def _gn_split(torch, src, map_pts, voxel) -> None:
@@ -3591,8 +3793,12 @@ def _gn_split(torch, src, map_pts, voxel) -> None:
     A = torch.eye(6, dtype=torch.float64, device=dev) * 4 + 0.1
     b = torch.ones(6, dtype=torch.float64, device=dev)
     dx = torch.full((6,), 1e-3, device=dev)
+    index = di.build_icp_index(map_pts, None, voxel)
     parts = {
-        "icp_nn": lambda: di.icp_nn(src, map_pts, None, voxel),
+        "icp_nn search (prebuilt index)": lambda: di.icp_nn(src,
+                                                            index=index),
+        "icp_nn index build": lambda: di.build_icp_index(map_pts, None,
+                                                         voxel),
         "normal terms (stack + one sum)": lambda: di._normal_terms(
             src, r, w, corr),
         "6x6 solve_ex (float64)": lambda: torch.linalg.solve_ex(A, b),
@@ -3606,24 +3812,18 @@ def _gn_split(torch, src, map_pts, voxel) -> None:
 
 def _run_icp_nn(torch, port, dev, slam) -> dict:
     """icp_nn against icp_nn_reference on the card at the largest
-    registration of the SLAM run and at ICP_NN_LARGE (queries and map
-    points from the yard, voxel 1.0 m); torch.cdist + min on the large
-    points as context (not the same function: no voxel mask). Returns the
-    kernel's entry of the `kernels` line."""
+    registration of the SLAM run, at ICP_NN_LARGE (queries and map points
+    from the yard, voxel 1.0 m) and on icp_nn_cases; torch.cdist + min on
+    the large points as context (not the same function: no voxel mask).
+    Returns the kernel's entry of the `kernels` line: `ms` is the search
+    with a prebuilt index at the SLAM run's largest map, `index_ms` the
+    build's, `launches` and `index_launches` the SLAM run's."""
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
 
     big = slam["largest"]
     at = _icp_nn_times(torch, nn, big["src"], big["map"], big["voxel"])
     n, m = big["src"].shape[0], big["m"]
-    print(f"icp_nn N={n} M={m} (the SLAM run's largest map): kernel "
-          f"{at['ms']:.4f} ms (median of 7 x 5; min {at['lo']:.4f}, max "
-          f"{at['hi']:.4f}), plain {at['plain_ms']:.3f} ms, bound "
-          f"{at['bound_ms']:.5f} ms ({at['bound_by']}; {at['pairs']} "
-          f"candidate pairs), {at['bound_ms'] / at['ms']:.2%} of bound; "
-          f"the brute-force N x M operation figure {at['brute_ms']:.4f} ms "
-          f"({at['brute_ms'] / at['ms']:.0%}); indices equal, "
-          f"distances bit-equal ({at['with_candidate']} of {n} with a "
-          f"candidate) [{CARD}]")
+    print(_icp_nn_line(n, m, at) + " (the SLAM run's largest map)")
     _gn_split(torch, big["src"], big["map"], big["voxel"])
     # the large case: the yard's world points as the map
     world = np.concatenate([p @ P[:3, :3].T + P[:3, 3]
@@ -3636,16 +3836,12 @@ def _run_icp_nn(torch, port, dev, slam) -> dict:
     q = q + rng.normal(0.0, 0.05, q.shape)
     src = torch.from_numpy(q.astype(np.float32)).to(dev)
     large = _icp_nn_times(torch, nn, src, map_pts, SLAM_VOXEL)
-    print(f"icp_nn N={qn} M={mn}: kernel {large['ms']:.4f} ms (median of "
-          f"7 x 5; min {large['lo']:.4f}, max {large['hi']:.4f}), plain "
-          f"{large['plain_ms']:.3f} ms, bound {large['bound_ms']:.5f} ms "
-          f"({large['bound_by']}; {large['pairs']} candidate pairs), "
-          f"{large['bound_ms'] / large['ms']:.2%} of bound; the brute-force "
-          f"N x M operation figure {large['brute_ms']:.4f} ms "
-          f"({large['brute_ms'] / large['ms']:.0%}), "
-          f"{qn * mn / large['ms'] / 1e9:.2f} Tpairs/s; indices "
-          f"equal, distances bit-equal ({large['with_candidate']} of {qn} "
-          f"with a candidate) [{CARD}]")
+    print(_icp_nn_line(qn, mn, large)
+          + f"; {qn * mn / large['ms'] / 1e9:.2f} T brute-force pairs/s "
+          f"equivalent")
+    print("icp_nn cases, both forms equal to the plain version on the card "
+          "(queries with a candidate): "
+          + _icp_nn_cases_on_card(torch, nn, dev) + f" [{CARD}]")
 
     def cdist_min():
         return min(torch.cdist(src, map_pts[k:k + 65536]).min(dim=1).values
@@ -3660,7 +3856,11 @@ def _run_icp_nn(torch, port, dev, slam) -> dict:
             "max_abs_err": max(at["max_abs_err"], large["max_abs_err"]),
             "ms": at["ms"], "plain_ms": at["plain_ms"],
             "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
-            "library_ms": None}
+            "library_ms": None, "index_ms": at["index_ms"],
+            "index_bound_ms": at["index_bound_ms"],
+            "index_launches": slam["index_launches"],
+            "large_ms": large["ms"], "large_bound_ms": large["bound_ms"],
+            "large_index_ms": large["index_ms"]}
 
 
 def _angles(a: np.ndarray, b: np.ndarray):
@@ -3760,6 +3960,84 @@ def _run_downsample(torch, port, dev, info, scans) -> None:
           f"within {err:.2e} m (limit 2e-5); {n_var} centroids differ "
           f"between two runs (atomics); device {ms:.3f} ms, numpy "
           f"{numpy_ms:.1f} ms [{CARD}]")
+
+
+# -- zone monitoring: occupancy of rendered zones on the card ------------------
+
+ZONES = 16      # MAX_ACTIVE_ZONES: every zone a sensor evaluates at once
+
+
+def zone_boxes(mod, n: int = ZONES):
+    """n box zones on a ring around the sensor, 6-30 m out, 1-4 m wide and
+    2-3 m tall, alternating occupancy and vacancy, in the zone model of
+    `mod` (the port's ouster_sdk_tpu_torch.zone)."""
+    zones = []
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        d = 6.0 + 24.0 * ((k * 7) % n) / n
+        z = mod.Zone.box(k + 1, center=(d * np.cos(a), d * np.sin(a), -0.5),
+                         size=(1.0 + k % 4, 1.0 + (k * 3) % 4, 2.0 + k % 2))
+        z.mode = mod.ZoneMode.OCCUPANCY if k % 2 == 0 \
+            else mod.ZoneMode.VACANCY
+        z.min_points = 1
+        zones.append(z)
+    return mod.ZoneSet(zones, sensor_to_body_transform=np.eye(4))
+
+
+def _run_zone(torch, port, dev, info, scans) -> None:
+    """zone_occupancy_device on the card at the SLAM cell's 128x2048 with
+    ZONES rendered box zones (the port's zone model, numpy ray casting),
+    over the yard scans' RANGE and RANGE2: counts equal to the numpy
+    zone_occupancy of each zone; ms a scan with the bounds resident on the
+    card (uint32) and with numpy inputs (bounds copied in each call)."""
+    import ouster_sdk_tpu_torch.zone as pz
+
+    t0 = time.perf_counter()
+    zs = zone_boxes(pz)
+    zs.render(info)
+    zrbs = [zs.zones[k].zrb for k in sorted(zs.zones)]
+    render_s = time.perf_counter() - t0
+    near = np.stack([z.near_range_mm for z in zrbs])
+    far = np.stack([z.far_range_mm for z in zrbs])
+    check(near.shape == (ZONES, info.format.pixels_per_column,
+                         info.format.columns_per_frame),
+          f"zone bounds of shape {near.shape}")
+
+    def u32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)) \
+            .to(dev).view(torch.uint32)
+
+    near_t, far_t = u32(near), u32(far)
+    counts = []
+    for scan in scans:
+        for field in ("RANGE", "RANGE2"):
+            r = scan.field(field)
+            got = pz.zone_occupancy_device(u32(r), near_t, far_t)
+            check(got.device.type == "cuda", "zone occupancy left the card")
+            want = [pz.zone_occupancy(r, z)[0] for z in zrbs]
+            check(got.cpu().tolist() == want,
+                  f"zone occupancy {got.cpu().tolist()} != numpy {want}")
+            counts.append(want)
+    r = scans[0].field("RANGE")
+    r_t = u32(r)
+    ms = device_ms(lambda: pz.zone_occupancy_device(r_t, near_t, far_t))[0]
+    issue_ms = cuda_ms(lambda: pz.zone_occupancy_device(r_t, near_t, far_t),
+                       iters=20, windows=5)[0]
+    host_ms = cuda_ms(lambda: pz.zone_occupancy_device(r, near, far,
+                                                       device=dev),
+                      iters=5, windows=3)[0]
+    numpy_ms = min(_host_s(lambda: [pz.zone_occupancy(r, z) for z in zrbs])
+                   for _ in range(3)) * 1e3
+    live = sum(1 for c in counts[0] if c > 0)
+    print(f"zone: {ZONES} box zones rendered at "
+          f"{info.format.pixels_per_column}x{info.format.columns_per_frame} "
+          f"in {render_s:.1f} s (numpy); zone_occupancy_device on "
+          f"{len(counts)} yard range images equal to numpy zone_occupancy "
+          f"(first: {counts[0]}, {live} zones occupied); "
+          f"{ms:.4f} ms a scan with the bounds on the card (device time; "
+          f"{issue_ms:.4f} back to back, host issue included), "
+          f"{host_ms:.3f} ms with numpy inputs (bounds copied in), numpy "
+          f"{numpy_ms:.2f} ms [{CARD}]")
 
 
 # -- SLAM: an outdoor yard driven through at vehicle speed --------------------

@@ -5,8 +5,7 @@ The reference's non-throwing metadata validator
 Handles both the modern sectioned layout ($.sensor_info / $.config_params /
 $.lidar_data_format / $.beam_intrinsics / ...) and the legacy flat layout
 (fw 1.12 - 2.1) by converting legacy to the modern shape first
-(ref: metadata.cpp:914-983 convert_legacy_to_nonlegacy). An embedded zone
-set ($.zone_set) is not parsed: the port has no zone model.
+(ref: metadata.cpp:914-983 convert_legacy_to_nonlegacy).
 """
 
 from __future__ import annotations
@@ -708,6 +707,20 @@ def parse_and_validate_metadata(
 
     if "user_data" in root and isinstance(root["user_data"], str):
         info.user_data = root["user_data"]
+
+    # embedded zone-monitor configuration: base64 of the zone zip
+    # (ref: metadata.cpp:871-875)
+    if "zone_set" in root and isinstance(root["zone_set"], str):
+        import base64
+
+        from ..zone.zone import ZoneSet
+
+        try:
+            info.zone_set = ZoneSet.from_zip(
+                base64.b64decode(root["zone_set"]))
+        except Exception as exc:
+            issues.warning.append(ValidatorEntry(
+                "$.zone_set", f"could not parse zone set: {exc}"))
 
     # stash unknown config params for round-tripping
     cfg = root.get("config_params") or {}

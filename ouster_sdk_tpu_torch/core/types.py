@@ -4,9 +4,7 @@ The reference's core types (ref: ouster_client/include/ouster/types.h:
 64-1108) as Python dataclasses with optional fields. Matrices are numpy
 float64 arrays (the device carries hi/lo float32 splits derived from them,
 see ops/xyzlut.py). `SensorInfo.to_json_string` is the metadata json an OSF
-file stores for its sensor. The parsed zone set of the reference's
-SensorInfo is not carried: a metadata string's `zone_set` is not read
-back and not written out.
+file stores for its sensor, the zone set (zone.ZoneSet) included.
 """
 
 from __future__ import annotations
@@ -386,6 +384,9 @@ class SensorInfo:
     user_data: str = ""
     # zone monitoring configuration hash (if present)
     zone_set_hash: str = ""
+    # parsed zone configuration when available
+    # (ref: client.pyi SensorInfo.zone_set: Optional[ZoneSet])
+    zone_set: Optional[object] = None
 
     def __post_init__(self) -> None:
         # SensorInfo(metadata_json_str) parses like the reference ctor
@@ -493,6 +494,16 @@ class SensorInfo:
             }
         if self.user_data:
             d["user_data"] = self.user_data
+        if self.zone_set is not None:
+            # embed the zone set as base64 of the STL+ZRB zip
+            # (ref: sensor_info.cpp:388-392)
+            import base64
+
+            from ..zone.zone import ZoneSetOutputFilter
+
+            d["zone_set"] = base64.b64encode(
+                self.zone_set.to_zip_blob(
+                    ZoneSetOutputFilter.STL_AND_ZRB)).decode()
         # always emitted by the client-side serialization, never by the
         # sensor's own metadata endpoint
         # (ref: sensor_info.cpp:407-413 to_json_string)

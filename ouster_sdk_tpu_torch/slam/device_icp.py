@@ -3,8 +3,9 @@
 The reference registers scans with a host voxel-hash ICP
 (ref: ouster_mapping thirdparty kiss-icp Registration.cpp). Here the
 Gauss-Newton loop runs on the device, one iteration after another from
-Python: the nearest-neighbour search (kernels/icp_nn.py, a hand-written
-CUDA kernel on the card), the Geman-McClure-weighted normal equations, the
+Python: the nearest-neighbour search (kernels/icp_nn.py, hand-written CUDA
+kernels on the card: the map's voxel index built once a registration, one
+search an iteration), the Geman-McClure-weighted normal equations, the
 6 x 6 solve, the SE(3) update; the host reads one stop flag an iteration.
 It is the counterpart of the JAX package's slam/jax_icp.py, which runs the
 same loop as one device program (`lax.while_loop`).
@@ -34,7 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..kernels.icp_nn import icp_nn
+from ..kernels.icp_nn import build_icp_index, icp_nn
 from ..ops.pose import _device_of, _hat
 from .kiss_icp import KissConfig, KissICP
 
@@ -143,9 +144,11 @@ def register_points_device(src: torch.Tensor,
 
     cur = _transform(init_pose, src)
     T_icp = torch.eye(4, **f32)
+    # the map stays fixed through the loop: one index serves every search
+    index = build_icp_index(map_pts, map_valid, voxel_size)
     it = 0
     while it < max_iters:
-        best_d2, best_idx = icp_nn(cur, map_pts, map_valid, voxel_size)
+        best_d2, best_idx = icp_nn(cur, index=index)
         # strict <, like DataAssociation's
         # `distance < max_correspondance_distance`
         corr = best_d2 < mcd2

@@ -245,10 +245,11 @@ def png_unfilter(rows: np.ndarray, h: int, stride: int, bpp: int
     return out
 
 
-def pcap_scan(data: np.ndarray, swap_endian: bool, ts_nano: bool,
+def pcap_scan(data, swap_endian: bool, ts_nano: bool,
               linktype: int, workspace: Optional[dict] = None):
-    """One pass over a whole capture file's bytes `data` (u8, the 24-byte
-    file header included): (payloads u8, offsets i64, sizes i64, ts u64,
+    """One pass over a whole capture file's bytes `data` (a u8 array or any
+    bytes-like object, the 24-byte file header included): (payloads u8,
+    offsets i64, sizes i64, ts u64,
     ports u32, dst_ips u32) of every reassembled UDP datagram, the
     contract of io.frames.pcap_scan. `payloads` ends with the last
     datagram's bytes.
@@ -260,7 +261,9 @@ def pcap_scan(data: np.ndarray, swap_endian: bool, ts_nano: bool,
     lib = get_lib()
     if lib is None:
         return None
-    buf = _arr(data, "data", np.uint8, (None,))
+    buf = _arr(data if isinstance(data, np.ndarray)
+               else np.frombuffer(data, dtype=np.uint8), "data", np.uint8,
+               (None,))
     cap = buf.size
     # every datagram takes >= 44 file bytes (16 B record header + IP and
     # UDP headers), so cap // 32 slots cannot run out; payloads are a

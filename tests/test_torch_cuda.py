@@ -28,8 +28,9 @@ equal the CPU's, project_packed_batched / project_bp64_batched launch
 planar_project once a call with XYZ bit-equal to the planar path (and with
 poses to the CPU's plain route); ShardedScanPipeline.project on a mesh of
 the one card launches once a shard, bit-equal to project_planar. SLAM:
-icp_nn's kernel gives the indices and the bits of icp_nn_reference, on the
-card and on the CPU; register_points_device on the card is within 1e-4 m
+icp_nn's kernels (a voxel index once a map, one search a call) give the
+indices and the bits of icp_nn_reference, on the card and on the CPU, on
+dense, tied, masked, empty and saturated inputs too; register_points_device on the card is within 1e-4 m
 of the CPU and gives the same bits with TF32 allowed; the SLAM engine's
 device backend launches icp_nn once a Gauss-Newton iteration; normals and
 voxel downsampling on the card agree with the CPU within stated bounds."""
@@ -967,6 +968,7 @@ def test_icp_nn_matches_plain_on_the_card(cuda, n, m, masked):
         nn.reset_launches()
         d2, idx = nn.icp_nn(src_t, map_t, valid, voxel)
         assert nn.launches["icp_nn"] == 1
+        assert nn.launches["icp_nn_index"] == 1
         want_d2, want_idx = nn.icp_nn_reference(src_t, map_t, valid, voxel)
         assert torch.equal(idx, want_idx)
         assert torch.equal(d2.view(torch.int32), want_d2.view(torch.int32))
@@ -1003,6 +1005,45 @@ def test_icp_nn_edge_cases_and_refusals(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", range(12))
+def test_icp_nn_cases_match_plain_on_the_card(cuda, case):
+    """chip_smoke.icp_nn_cases on the card: dense cells of 500 points in one
+    voxel, duplicated map points at equal distance (ties), masked points,
+    queries with no candidate, saturated and wrapped voxels, voxels of
+    0.05 and 2.0 m, N = 0, M = 0 and an all-invalid map. Both forms (a
+    prebuilt index, the one call) give the indices and the bits of
+    icp_nn_reference on the card; one index build and one search a call
+    (none for N = 0)."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+
+    cases = cs.icp_nn_cases()
+    assert len(cases) == 12
+    name, src, mp, valid, voxel = cases[case]
+    s = torch.from_numpy(src).to(cuda)
+    m = torch.from_numpy(mp).to(cuda)
+    v = None if valid is None else torch.from_numpy(valid).to(cuda)
+    want = nn.icp_nn_reference(s, m, v, voxel)
+    nn.reset_launches()
+    index = nn.build_icp_index(m, v, voxel)
+    assert nn.launches == {"icp_nn": 0, "icp_nn_index": 1}
+    for got in (nn.icp_nn(s, index=index), nn.icp_nn(s, m, v, voxel)):
+        assert torch.equal(got[1], want[1]), name
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), name
+    n = src.shape[0]
+    assert nn.launches == {"icp_nn": 2 if n else 0,
+                           "icp_nn_index": 2 if n else 1}
+    # packed points: every valid point once, voxel by voxel
+    count = int(index.cells[:, 3].sum())
+    assert count == (mp.shape[0] if valid is None else int(valid.sum()))
+    idx = index.points[:count, 3].view(torch.int32).long().sort().values
+    want_idx = torch.arange(mp.shape[0], device=cuda) if valid is None \
+        else torch.nonzero(v).flatten()
+    assert torch.equal(idx, want_idx)
+
+
+@pytest.mark.cuda
 def test_register_points_device_on_the_card_matches_the_cpu(cuda):
     """register_points_device on the card against the CPU: translation
     within 1e-4 m and rotation within 1e-5 (sums in another order on the
@@ -1030,6 +1071,7 @@ def test_register_points_device_on_the_card_matches_the_cpu(cuda):
     nn.reset_launches()
     got, st = run(cuda)
     assert nn.launches["icp_nn"] == st["iterations"] > 0
+    assert nn.launches["icp_nn_index"] == 1     # one index a registration
     want, _ = run("cpu")
     assert np.linalg.norm(got[:3, 3] - want[:3, 3]) <= 1e-4
     assert np.abs(got[:3, :3] - want[:3, :3]).max() <= 1e-5

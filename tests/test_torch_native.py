@@ -4,7 +4,8 @@ io/frames.py that keep its contracts: pcap_scan, the word-planar grouper
 (instance staging, resumed chunks, the live slab), the packet-layout
 grouper and crc64, byte for byte on the captures the engine tests
 synthesize, on big-endian and nanosecond captures, on truncated tails and
-on files shorter than a pcap header. Then FrameReader and the device engine
+on files shorter than a pcap header; pcap_scan takes a capture's bytes as the
+JAX package's does, with equal outputs. Then FrameReader and the device engine
 with the library and with `native.get_lib` patched to None give equal
 output, and the build and the wrappers refuse what they cannot run.
 """
@@ -195,6 +196,67 @@ def test_pcap_scan_byte_orders_and_resolutions(tmp_path, monkeypatch,
     got = _scan(out)
     _same(got, _scan(out, monkeypatch), variant)
     _same(got, _scan(path), f"{variant} against the original")
+
+
+def _reassembly_captures():
+    """The captures of tests/test_pcap_reassembly.py's native cases
+    (test_native_scan_null_loopback, test_native_scan_ipv6,
+    test_native_duplicate_fragment_hole): (name, frames, linktype)."""
+    from test_pcap_reassembly import _udp4, _udp6
+
+    from ouster_sdk_tpu_torch.io.pcap import LINKTYPE_ETHERNET, LINKTYPE_NULL
+
+    eth, eth6 = (b"\x00" * 12 + struct.pack(">H", t) for t in (0x0800,
+                                                              0x86DD))
+    payload = bytes(range(256)) * 9
+    udp = struct.pack(">HHHH", 7000, 7502, 8 + len(payload), 0) + payload
+
+    def frag(off, chunk, more):
+        ff = (0x2000 if more else 0) | (off // 8)
+        ip = struct.pack(">BBHHHBBH4s4s", 0x45, 0, 20 + len(chunk), 42, ff,
+                         64, 17, 0, b"\x0a\x00\x00\x01", b"\x0a\x00\x00\x02")
+        return eth + ip + chunk
+
+    return [
+        ("null_loopback", [struct.pack("<I", 2) + _udp4(b"x" * 100)
+                           for _ in range(3)], LINKTYPE_NULL),
+        ("ipv6", [eth6 + _udp6(bytes([i]) * 64) for i in range(4)],
+         LINKTYPE_ETHERNET),
+        ("duplicate_fragment_hole",
+         [frag(0, udp[:800], True), frag(0, udp[:800], True),
+          frag(1600, udp[1600:], False), frag(800, udp[800:1600], True)],
+         LINKTYPE_ETHERNET)]
+
+
+@pytest.mark.parametrize("case", range(3), ids=["null_loopback", "ipv6",
+                                                 "duplicate_fragment_hole"])
+def test_pcap_scan_takes_bytes_as_the_jax_package_does(tmp_path, case):
+    """pcap_scan on a capture's bytes (not an array) equals the JAX
+    package's native pcap_scan on the same bytes, and itself on the same
+    bytes as a u8 array."""
+    from test_pcap_reassembly import _write_raw_pcap
+
+    from ouster_sdk_tpu.utils import native as jnative
+
+    if jnative.get_lib() is None:
+        pytest.skip("the JAX package's native library did not build")
+    name, frames, linktype = _reassembly_captures()[case]
+    path = str(tmp_path / f"{name}.pcap")
+    _write_raw_pcap(path, frames, linktype)
+    with open(path, "rb") as f:
+        data = f.read()
+    got = native.pcap_scan(data, False, False, linktype)
+    want = jnative.pcap_scan(data, False, False, linktype)
+    # the JAX package returns its whole payload buffer, the port the bytes
+    # up to the last datagram's end
+    _same(got[1:], want[1:], name)
+    assert np.array_equal(got[0], want[0][:got[0].size])
+    assert got[0].size == int(got[1][-1] + got[2][-1])
+    _same(got, native.pcap_scan(np.frombuffer(data, np.uint8), False, False,
+                                linktype), name)
+    assert len(got[1]) == (1 if case == 2 else len(frames))
+    _same(native.pcap_scan(bytearray(data), False, False, linktype), got,
+          name)
 
 
 def test_pcap_scan_truncated_and_short_files(tmp_path, monkeypatch):
@@ -447,5 +509,7 @@ def test_wrappers_check_their_arrays():
         native.group_frames(payloads, offs, None, size, 0, 0, 0xFFFF, 8, 16,
                             plan.n_pkts, frames[:, :, ::2],
                             np.zeros(2, np.int64), np.zeros(2, np.uint64))
-    with pytest.raises(TypeError):
-        native.pcap_scan(b"\0" * 64, False, False, 1)
+    with pytest.raises(TypeError):      # neither an array nor bytes-like
+        native.pcap_scan("\0" * 64, False, False, 1)
+    with pytest.raises(ValueError):
+        native.pcap_scan(np.zeros(16, np.uint32), False, False, 1)

@@ -39,7 +39,8 @@ from ouster_sdk_tpu.core.metadata import \
 from ouster_sdk_tpu.slam import engine as jengine
 from ouster_sdk_tpu.slam import jax_icp
 from ouster_sdk_tpu.slam import kiss_icp as jkiss
-from ouster_sdk_tpu_torch.kernels.icp_nn import icp_nn, icp_nn_reference
+from ouster_sdk_tpu_torch.kernels.icp_nn import (build_icp_index, icp_nn,
+                                                 icp_nn_reference)
 from ouster_sdk_tpu_torch.slam import device_icp as tdev
 from ouster_sdk_tpu_torch.slam import engine as tengine
 from ouster_sdk_tpu_torch.slam import kiss_icp as tkiss
@@ -100,6 +101,34 @@ def test_icp_nn_reference_matches_chunked_nn(voxel, masked):
     assert torch.equal(wi, torch.from_numpy(ti))
     assert torch.equal(wd.view(torch.int32), torch.from_numpy(td)
                        .view(torch.int32))
+
+
+@pytest.mark.parametrize("voxel,masked", [(1.0, False), (0.5, True)])
+def test_icp_nn_with_a_prebuilt_index_equals_the_reference(voxel, masked):
+    """The index form, icp_nn(src, index=build_icp_index(...)), as a
+    registration calls it: on the CPU the index holds the inputs and the
+    search is icp_nn_reference's, bit for bit; no kernel is launched."""
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+
+    scan, mp, _ = _single_shot()
+    valid = (torch.from_numpy(np.random.default_rng(2).random(len(mp)) > 0.3)
+             if masked else None)
+    src, map_t = torch.from_numpy(scan), torch.from_numpy(mp)
+    nn.reset_launches()
+    index = build_icp_index(map_t, valid, voxel)
+    assert index.device.type == "cpu" and index.cells is None
+    want_d, want_i = icp_nn_reference(src, map_t, valid, voxel)
+    for q in (src, src[::3] + 0.1):
+        got_d, got_i = icp_nn(q, index=index)
+        ref_d, ref_i = icp_nn_reference(q, map_t, valid, voxel)
+        assert torch.equal(got_i, ref_i)
+        assert torch.equal(got_d.view(torch.int32), ref_d.view(torch.int32))
+    assert torch.equal(icp_nn(src, index=index)[1], want_i)
+    assert all(n == 0 for n in nn.launches.values())
+    with pytest.raises(ValueError):
+        icp_nn(src, map_t, valid, voxel, index=index)
+    with pytest.raises(ValueError):
+        build_icp_index(map_t, valid, 0.0)
 
 
 def test_register_points_device_matches_register_points_jax():
