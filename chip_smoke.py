@@ -5,10 +5,11 @@
 
 Builds the CUDA kernels and the native host library (g++, the port's own
 C++ copy) from the sources in this checkout, synthesizes captures with the
-port's own packet and pcap writers, and drives the port's ten paths
-through the entry points a user calls. Every path stages its packets
-through the native library: its call counts are read after each path and
-the run fails unless each path made a capture scan and grouper calls.
+port's own packet and pcap writers, and drives the port's ten paths and
+its host layer through the entry points a user calls. Every path stages
+its packets through the native library: its call counts are read after
+each path and the run fails unless each path made a capture scan and
+grouper calls.
 
 The planar path: pcap -> FrameReader.iter_planar_chunks -> ScanPipeline
 (decode_planar, project_planar without and with per-column poses) ->
@@ -98,10 +99,24 @@ map, at 8192 x 524288 yard points and on dense, tied, masked, empty and
 saturated inputs, its search, index build and one call timed on the
 card, with torch.cdist + min timed beside it as context;
 scan_normals(backend="device") against the numpy normals on yard scans;
-and voxel_downsample_device against the numpy voxel_downsample. Last, the
+and voxel_downsample_device against the numpy voxel_downsample. Then the
 zone phase renders 16 box zones at 128x2048 with the port's zone model
 and holds zone_occupancy_device on the card to the numpy zone_occupancy
-over the yard's range images, and times it a scan.
+over the yard's range images, and times it a scan. Last, the host layer
+phase takes 8 frames of the main cell: open_source(pcap) on the engine,
+then .reduce([64]), .clip([RANGE, RANGE2]) and .mask(...) held bit-equal,
+StreamDigest included, to the same views over the numpy ScanBatcher;
+save_scans of the card's scans to OSF, pcap, ROS1 bag, rosbag2 .db3,
+MCAP, PLY, PCD, LAS, CSV and a PNG series, each file read back (OSF
+through the projector, launches counted; pcap through the engine; bags
+through BagScanSource; point clouds through CloudScanSource, held to the
+f64 host projection the writer stored) and held to what was saved;
+filter_xyz(scan, XYZLut(info), ...) on the OSF scans, without and with
+dewarp, served from the XYZ cache (hits counted) and equal to the f64
+host LUT, and missing the cache for RANGE once clip changed it; a custom
+profile (add_custom_profile) decoded by the engine on the card bit-equal
+to the ScanBatcher; ms/scan of each view, writer and reader and MB/scan
+of each writer printed.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -951,6 +966,14 @@ def _run(torch, port, pk, dev, tmp) -> int:
     t0 = time.perf_counter()
     _run_zone(torch, port, dev, slam["info"], slam["scans"])
     print(f"zone phase: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pk.reset_launches()
+    host_launches = _run_host_layer(torch, port, pk, dev, tmp,
+                                    captures[MAIN_PROFILE][0])
+    kernels[0]["launches"] += host_launches
+    print(f"host layer phase: {time.perf_counter() - t0:.1f} s; "
+          f"planar_project<planar>: {host_launches} more launches (the OSF "
+          f"projector); {kernels[0]['launches']} in all")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -2459,6 +2482,349 @@ def _run_osf(torch, port, pk, dev, tmp, info, oracle, two_sensor) -> int:
         f"{name} {', '.join(f'{v:.2f}' for v in vals)}"
         for name, vals in turns.items()) + f" [{CARD}]")
     return launches
+
+
+
+# -- the host layer ------------------------------------------------------------
+
+HOST_FRAMES = 8        # frames of the main capture the host layer takes
+HOST_CSV_SCANS = 2     # scans saved as CSV (np.savetxt writes ~7 us a point)
+HOST_FORMATS = ("osf", "pcap", "bag", "db3", "mcap", "ply", "pcd", "las",
+                "csv", "png")
+CUSTOM_PROFILE = (250, "CHIP_SMOKE_CUSTOM_12B")   # number, name
+
+
+def host_views(mask):
+    """The derived views the host layer holds, by the name it prints: beam
+    reduction, a RANGE band (mm) on both returns, a destaggered mask."""
+    return {
+        "reduce([64])": lambda s: s.reduce([64]),
+        "clip(RANGE, RANGE2, 20 m, 300 m)": lambda s: s.clip(
+            ["RANGE", "RANGE2"], 20000, 300000),
+        "mask(RANGE, SIGNAL, REFLECTIVITY)": lambda s: s.mask(
+            ["RANGE", "SIGNAL", "REFLECTIVITY"], [mask]),
+    }
+
+
+def saved_points(port, info, scans) -> np.ndarray:
+    """What save_scans' point-cloud writers store for `scans`: RANGE
+    through the f64 host LUT with the extrinsic, dewarped by the scan's
+    poses, the points with a range, as float32 (io/save._save_points)."""
+    from ouster_sdk_tpu_torch.utils.pose_util import dewarp
+
+    lut = port.make_xyz_lut(info, use_extrinsics=True)
+    return np.concatenate([
+        dewarp(lut(s.field("RANGE")), s.pose)[s.field("RANGE") > 0]
+        for s in scans]).astype(np.float32)
+
+
+def las_points(p32: np.ndarray) -> np.ndarray:
+    """The points a LAS file of `p32` holds: 1 mm steps from the per-axis
+    minimum (io/cloud_io._write_las), read back in float64."""
+    mins = p32.min(axis=0)
+    coded = np.round((p32 - mins) / 0.001).astype(np.int32)
+    return coded.astype(np.float64) * 0.001 + mins.astype(np.float64)
+
+
+def hold_saved(got, want, what: str, ts_unit: int) -> None:
+    """Scans read back from a saved file against the scans saved, every
+    field and header. With a `ts_unit` (ns), a file of re-packetized scans
+    (pcap, bags): its packets carry new receive times, the first valid one
+    plus the packet's index, stored in that unit; they are checked as such
+    and then set aside."""
+    check(len(got) == len(want),
+          f"{what}: {len(got)} scans read back of {len(want)}")
+    n = 0
+    for a, b in zip(got, want):
+        if ts_unit:
+            base = int(b.first_valid_packet_timestamp())
+            new = base + np.arange(len(a.packet_timestamp), dtype=np.uint64)
+            check(np.array_equal(a.packet_timestamp,
+                                 new // ts_unit * ts_unit),
+                  f"{what}: frame {a.frame_id} receive times")
+            a.packet_timestamp[:] = b.packet_timestamp
+        n += scans_differ(a, b)
+    check(n == 0, f"{what}: {n} elements differ from the scans saved")
+
+
+class xyz_cache_calls:
+    """Count LidarScan.cached_xyz calls that found a cache (hits) and that
+    did not (misses) while the block runs."""
+
+    def __init__(self, cls):
+        self.cls, self.hits, self.misses = cls, 0, 0
+
+    def __enter__(self):
+        self.fn = self.cls.cached_xyz
+        outer = self
+
+        def counted(scan, *args):
+            out = outer.fn(scan, *args)
+            if out is None:
+                outer.misses += 1
+            else:
+                outer.hits += 1
+            return out
+
+        self.cls.cached_xyz = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.cached_xyz = self.fn
+
+
+def _run_host_layer(torch, port, pk, dev, tmp, info) -> int:
+    """The host layer over the card's scans, on HOST_FRAMES frames of the
+    main cell: derived views of open_source(pcap) (the engine on the card)
+    held bit-equal to the same views on the numpy ScanBatcher, digests
+    included; save_scans of the card's scans to every format, each file
+    read back (OSF through the projector, pcap through the engine, bags
+    through BagScanSource, point clouds through CloudScanSource) and held
+    to what was saved; filter_xyz served from the OSF replay's XYZ cache
+    and held to the f64 host LUT, missing the cache once clip changed
+    RANGE; a custom profile decoded on the card bit-equal to the
+    ScanBatcher. Returns the launches of planar_project<planar>."""
+    import copy
+    import shutil
+
+    from ouster_sdk_tpu_torch.io import derived
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.io.save import save_scans
+    from ouster_sdk_tpu_torch.ops import profiles
+    from ouster_sdk_tpu_torch.ops.packet_format import PacketWriter
+    from ouster_sdk_tpu_torch.utils.digest import FieldDigest, StreamDigest
+
+    env = "OUSTER_SDK_TPU_DEVICE_DECODE"
+    launches0 = pk.launches["planar"]
+    # the lidar stream's port and destination configured, as a sensor's
+    # metadata has them: a bag carries the metadata as json, and its
+    # parser reads a sensor without them as one whose lidar stream is off
+    info = copy.deepcopy(info)
+    info.config.udp_port_lidar, info.config.udp_dest = 7502, "10.0.0.1"
+    work = os.path.join(tmp, "host")
+    os.makedirs(work)
+    try:
+        path = os.path.join(work, "host.pcap")
+        synth_capture(path, info, HOST_FRAMES)
+        packets = StreamDigest.from_packet_source(
+            port.PcapPacketSource(path, sensor_infos=[info])).packet_hash
+        iter_released = de.DeviceScanIterator.iter_released
+        devices = set()
+
+        def recorded(it):
+            devices.add(it.device.type)
+            yield from iter_released(it)
+
+        def read(make, value, what, engine):
+            """Every set of make() with the variable at `value` (None:
+            unset) and its seconds; fails unless the engine decoded on the
+            card exactly when `engine`."""
+            if value is None:
+                os.environ.pop(env, None)
+            else:
+                os.environ[env] = value
+            de.stats.update(batches=0, scans=0, osf_batches=0)
+            devices.clear()
+            de.DeviceScanIterator.iter_released = recorded
+            try:
+                t0 = time.perf_counter()
+                sets = list(make())
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            finally:
+                de.DeviceScanIterator.iter_released = iter_released
+                os.environ.pop(env, None)
+            ran = devices == {"cuda"} and de.stats["scans"] > 0
+            check(ran == engine and devices <= {"cuda"},
+                  f"{what}: the engine ran on {devices}, stats {de.stats}")
+            return sets, secs
+
+        # 1. derived views, the engine on the card against the batcher
+        card, secs = read(lambda: port.open_source(path, sensor_info=[info]),
+                          None, "open_source", True)
+        scans = [ls[0] for ls in card]
+        check(len(scans) == HOST_FRAMES, f"{len(scans)} scans")
+        print(f"host layer: open_source {HOST_FRAMES} frames of "
+              f"{info.h}x{info.w} dual, the engine on the card: "
+              f"{secs / HOST_FRAMES * 1e3:.2f} ms/scan [{CARD}]")
+        mask = np.random.default_rng(12).random((info.h, info.w)) > 0.25
+        for name, view in host_views(mask).items():
+            got, secs = read(lambda: view(port.open_source(
+                path, sensor_info=[info])), None, name, True)
+            want, bsecs = read(lambda: view(port.open_source(
+                path, sensor_info=[info])), "0", name + " (batcher)", False)
+            check(len(got) == len(want) == HOST_FRAMES,
+                  f"{name}: {len(got)} and {len(want)} sets")
+            n = sum(scans_differ(a[0], b[0]) for a, b in zip(got, want))
+            digests = [StreamDigest(packets, [FieldDigest.from_scan(ls[0])
+                                              for ls in sets])
+                       for sets in (got, want)]
+            check(n == 0 and digests[0].to_json() == digests[1].to_json(),
+                  f"{name}: {n} elements differ from the batcher's view, "
+                  f"digests equal {digests[0] == digests[1]}")
+            print(f"host layer view {name}: {HOST_FRAMES} scans of "
+                  f"{got[0][0].h}x{got[0][0].w}, 0 elements differ from the "
+                  f"same view on the numpy ScanBatcher, StreamDigest equal; "
+                  f"{secs / HOST_FRAMES * 1e3:.2f} ms/scan over the engine "
+                  f"({bsecs / HOST_FRAMES * 1e3:.2f} over the batcher) "
+                  f"[{CARD}]")
+
+        # 2. save_scans of the card's scans, and each file read back
+        want_pts = saved_points(port, info, scans)
+        csv_pts = saved_points(port, info, scans[:HOST_CSV_SCANS])
+        outs = {}
+        for ext in HOST_FORMATS:
+            out = os.path.join(work, f"saved.{ext}")
+            k = HOST_CSV_SCANS if ext == "csv" else HOST_FRAMES
+            before = set(os.listdir(work))
+            t0 = time.perf_counter()
+            n = save_scans(out, [info], card[:k])
+            secs = time.perf_counter() - t0
+            new = sorted(set(os.listdir(work)) - before)
+            check(n == k and new, f"save_scans {ext}: {n} scans, files {new}")
+            size = sum(os.path.getsize(os.path.join(work, f)) for f in new)
+            outs[ext] = (out, k, new)
+            print(f"host layer write .{ext}: {k} scans in {secs:.3f} s = "
+                  f"{secs / k * 1e3:.2f} ms/scan, {size / k / 1e6:.3f} "
+                  f"MB/scan ({len(new)} file{'s' * (len(new) > 1)}) [{CARD}]")
+        _, _, pngs = outs["png"]
+        check(len(pngs) == HOST_FRAMES * len(list(scans[0].fields)),
+              f"png: {len(pngs)} files")
+
+        before = pk.launches["planar"]
+        got, secs = read(lambda: port.open_source(outs["osf"][0]), None,
+                         "OSF read", False)
+        # save_scans records each set as a collation: the projector takes
+        # one window a set, as for the OSF phase's two-sensor file
+        windows = HOST_FRAMES
+        check(pk.launches["planar"] - before == windows,
+              f"OSF read: {pk.launches['planar'] - before} launches of "
+              f"planar_project, expected {windows}")
+        osf_scans = [ls[0] for ls in got]
+        hold_saved(osf_scans, scans, "OSF read", 0)
+        readers = {"osf": secs}
+        for ext in ("pcap", "bag", "db3", "mcap"):
+            kw = {"sensor_info": [info]} if ext == "pcap" else {}
+            got, secs = read(lambda: port.open_source(outs[ext][0], **kw),
+                             None, f"{ext} read", ext == "pcap")
+            # a pcap stores microseconds
+            hold_saved([ls[0] for ls in got], scans, f"{ext} read",
+                       1000 if ext == "pcap" else 1)
+            readers[ext] = secs
+        for ext in ("ply", "pcd", "las", "csv"):
+            pts = csv_pts if ext == "csv" else want_pts
+            want = las_points(pts) if ext == "las" else pts
+            t0 = time.perf_counter()
+            src = port.open_source(outs[ext][0])
+            sets = list(src)
+            readers[ext] = time.perf_counter() - t0
+            check(type(src).__name__ == "CloudScanSource" and len(sets) == 1,
+                  f"{ext}: {type(src).__name__}, {len(sets)} sets")
+            xyz = sets[0][0].field("XYZ").transpose(1, 0, 2).reshape(
+                -1, 3)[:len(pts)]
+            n = int((xyz != want.astype(np.float32)).sum())
+            check(n == 0, f"{ext}: {n} coordinates differ from the host "
+                  f"projection saved")
+        for ext, secs in readers.items():
+            k = outs[ext][1]
+            print(f"host layer read .{ext}: {secs * 1e3:.1f} ms for {k} "
+                  f"scans = {secs / k * 1e3:.2f} ms/scan, equal to what was "
+                  f"saved ({'CloudScanSource: the points of the f64 host '
+                   'projection' if ext in ('ply', 'pcd', 'las', 'csv') else
+                   'every field and header'}) [{CARD}]")
+
+        # 3. filter_xyz on the OSF replay's scans: the XYZ cache, then a
+        # clip that changes RANGE
+        lut, host_lut = port.XYZLut(info), port.make_xyz_lut(info)
+        poses = random_poses(HOST_FRAMES, info.w, seed=21)
+        times = {"cache": 0.0, "host LUT": 0.0}
+        for dewarp in (False, True):
+            with xyz_cache_calls(port.LidarScan) as calls:
+                for k, s in enumerate(osf_scans):
+                    a, b = copy.deepcopy(s), copy.deepcopy(s)
+                    if dewarp:
+                        a.pose[:] = poses[k]
+                        b.pose[:] = poses[k]
+                    for x, lt, key in ((a, lut, "cache"),
+                                       (b, host_lut, "host LUT")):
+                        t0 = time.perf_counter()
+                        derived.filter_xyz(x, lt, 2, -1.0, 0.5,
+                                           dewarp_points=dewarp)
+                        times[key] += time.perf_counter() - t0
+                    check(scans_differ(a, b) == 0,
+                          f"filter_xyz frame {s.frame_id}: the cache and "
+                          f"the f64 host LUT disagree")
+            check(calls.hits == 2 * HOST_FRAMES and calls.misses == 0,
+                  f"filter_xyz: {calls.hits} cache hits, {calls.misses} "
+                  f"misses")
+        before = pk.launches["planar"]
+        clipped, _ = read(lambda: port.open_source(outs["osf"][0]).clip(
+            ["RANGE"], 30000, 2**32), None, "OSF read, clip", False)
+        check(pk.launches["planar"] - before == windows,
+              "the clipped OSF view did not project through the kernel")
+        with xyz_cache_calls(port.LidarScan) as calls:
+            for ls in clipped:
+                a, b = ls[0], copy.deepcopy(ls[0])
+                derived.filter_xyz(a, lut, 2, -1.0, 0.5)
+                derived.filter_xyz(b, host_lut, 2, -1.0, 0.5)
+                check(scans_differ(a, b) == 0, "filter_xyz after clip")
+        check(calls.misses == HOST_FRAMES and calls.hits == HOST_FRAMES,
+              f"filter_xyz after clip(RANGE): {calls.misses} misses, "
+              f"{calls.hits} hits; expected RANGE to miss, RANGE2 to hit")
+        print(f"host layer filter_xyz(scan, XYZLut(info), z in [-1, 0.5] m)"
+              f" on {HOST_FRAMES} OSF scans, without and with dewarp: "
+              f"{4 * HOST_FRAMES} cache hits, 0 misses, equal to the f64 "
+              f"host LUT; {times['cache'] / (2 * HOST_FRAMES) * 1e3:.2f} "
+              f"ms/scan from the cache, "
+              f"{times['host LUT'] / (2 * HOST_FRAMES) * 1e3:.2f} ms/scan "
+              f"through the host LUT; after clip(RANGE): RANGE missed "
+              f"{HOST_FRAMES} of {HOST_FRAMES}, RANGE2 hit [{CARD}]")
+
+        # 4. a custom profile, on the card against the batcher
+        nr, name = CUSTOM_PROFILE
+        profiles.add_custom_profile(nr, name, [
+            ("RANGE", profiles.FieldInfo(0, 20)),
+            ("REFLECTIVITY", profiles.FieldInfo(32, 8)),
+            ("SIGNAL", profiles.FieldInfo(48, 16)),
+            ("CUSTOM0", profiles.FieldInfo(64, 12)),
+            ("RAW32_WORD1", profiles.FieldInfo(0, 32))], 12)
+        try:
+            cinfo = copy.deepcopy(info)
+            cinfo.format.udp_profile_lidar = name
+            check(de.supports_device_decode(cinfo),
+                  "the custom profile is not on the device route")
+            pw = PacketWriter(cinfo.format)
+            rng = np.random.default_rng(13)
+            pkts = []
+            for payload, ts in synth_packets(cinfo, range(1, 5), seed=14):
+                buf = np.frombuffer(payload, np.uint8).copy()
+                pw.set_field(buf, "CUSTOM0", rng.integers(
+                    0, 1 << 12, (cinfo.h, pw.columns_per_packet)))
+                pkts.append((bytes(buf), ts))
+            cpath = os.path.join(work, "custom.pcap")
+            write_capture(cpath, pkts)
+            got, secs = read(lambda: port.open_source(
+                cpath, sensor_info=[cinfo]), None, "custom profile", True)
+            want, _ = read(lambda: port.open_source(
+                cpath, sensor_info=[cinfo]), "0", "custom profile (batcher)",
+                False)
+            check(len(got) == len(want) == 4
+                  and "CUSTOM0" in got[0][0].fields
+                  and (got[0][0].field("CUSTOM0") != 0).any(),
+                  f"custom profile: {len(got)} and {len(want)} scans")
+            n = sum(scans_differ(a[0], b[0]) for a, b in zip(got, want))
+            check(n == 0, f"custom profile: {n} elements differ")
+            print(f"host layer add_custom_profile({nr}, {name!r}): 4 frames "
+                  f"of {cinfo.h}x{cinfo.w} decoded by the engine on the "
+                  f"card, 0 elements differ from the ScanBatcher "
+                  f"({len(list(got[0][0].fields))} fields, CUSTOM0 "
+                  f"included); {secs / 4 * 1e3:.2f} ms/scan [{CARD}]")
+        finally:
+            profiles._custom_profiles.pop(name, None)
+            profiles._custom_scan_slots.pop(name, None)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return pk.launches["planar"] - launches0
 
 
 

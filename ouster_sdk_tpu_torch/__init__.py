@@ -91,18 +91,39 @@ import os
 
 import numpy as np
 
+__version__ = "0.5.0"
+
 from .core.batcher import ScanBatcher
-from .core.constants import ChanField
+from .core.constants import RANGE_UNIT, ChanField
 from .core.error_handler import (Severity, default_error_handler,
                                  logging_error_handler)
 from .core.logging import init_logger
 from .core.field import ChanFieldType, FieldClass, FieldType
 from .core.lidar_scan import (LidarScan, get_field_types,
                               resolve_field_types)
-from .core.metadata import default_sensor_info, sensor_info_from_metadata
-from .core.packets import ImuPacket, LidarPacket, Packet, ZonePacket
-from .core.types import (DataFormat, HeaderType, LidarMode, SensorInfo,
-                         UDPProfileIMU, UDPProfileLidar)
+from .core.metadata import (ValidatorEntry, ValidatorIssues,
+                            default_sensor_info, parse_and_validate_config,
+                            parse_and_validate_metadata,
+                            parse_and_validate_sensor_config, parse_config,
+                            sensor_info_from_metadata)
+from .core.packets import (ImuPacket, LidarPacket, Packet, PacketType,
+                           PacketValidationFailure, ZonePacket)
+from .core.scan_utils import (BufferT, ColHeader, FrameBorder,
+                              first_valid_column_pose,
+                              last_valid_column_pose, packet_ts,
+                              poses_present, valid_packet_idxs)
+from .core.scans import Packets, Scans
+from .core.types import (INVALID_VERSION, BloomReductionOptimization,
+                         CalibrationStatus, DataFormat, FullScaleRange,
+                         HeaderType, LidarMode, MultipurposeIOMode,
+                         NMEABaudRate, OperatingMode, Polarity, ProductInfo,
+                         ReturnOrder, SensorConfig, SensorInfo,
+                         ShotLimitingStatus, ThermalShutdownStatus,
+                         TimestampMode, UDPProfileIMU, UDPProfileLidar,
+                         Version)
+from .io.cloud_io import read_pointcloud
+from .io.derived import (ClippedScanSource, MaskedScanSource,
+                         ReducedScanSource)
 from .io.device_engine import (DeviceScanIndex, DeviceScanIterator,
                                LiveDeviceBatcher, OsfDeviceProjector,
                                make_osf_projector, supports_device_decode,
@@ -123,6 +144,7 @@ from .ops.bp64 import bp64_encode_numpy, project_bp64_batched
 from .ops.destagger import destagger, destagger_torch, stagger
 from .ops.downsample import voxel_downsample, voxel_downsample_device
 from .ops.fused import PipelineConfig, ScanPipeline, default_device
+from .ops.image_processing import AutoExposure, BeamUniformityCorrector
 from .ops.normals import normals, scan_normals
 from .ops.normals_device import normals_device
 from .ops.lutfree_kernels import (FactorTables, lutfree_supported,
@@ -141,6 +163,7 @@ from .ops.planar_kernels import (PlanarLut, launches, project_ranges,
 from .ops.pose import (dewarp, dewarp_np, exp_pose, interp_pose,
                        interp_pose_np, interp_trajectory, log_pose,
                        transform, transform_np)
+from .ops.profiles import FieldInfo, add_custom_profile
 from .ops.unpack import (decode_frame, decode_frame_batch,
                          decode_frame_planar, decode_frame_planar_batch,
                          frame_words_from_packets, make_decode_plan)
@@ -152,6 +175,8 @@ from .sensor.http import (LONG_HTTP_REQUEST_TIMEOUT_SECONDS,
                           SHORT_HTTP_REQUEST_TIMEOUT_SECONDS, SensorHttp)
 from .state import (kiss_icp_from_numpy, lidar_scan_from_jax,
                     lidar_scan_from_numpy)
+from .utils.pose_util import (euler_pose_to_matrix, interp_pose_float,
+                              quaternion_pose_to_matrix)
 from . import slam
 
 
@@ -165,21 +190,25 @@ def XYZLutFactory(info, use_extrinsics: bool = False):
     passed and its range content is unchanged since projection, the cache
     is served instead of re-projecting on the host.
     OUSTER_SDK_TPU_DEVICE_XYZ=0 disables serving (always recompute in
-    f64)."""
+    f64). `project.return_xyz(scan, ret)` does the same for either return
+    (0: RANGE, 1: RANGE2); io.derived.filter_xyz projects through it."""
     lut = make_xyz_lut(info, use_extrinsics)
+
+    def return_xyz(scan, ret: int):
+        rng = scan.field(ChanField.RANGE2 if ret else ChanField.RANGE)
+        if hasattr(scan, "cached_xyz") and \
+                os.environ.get("OUSTER_SDK_TPU_DEVICE_XYZ") != "0":
+            hit = scan.cached_xyz(ret, use_extrinsics, rng)
+            if hit is not None:
+                return hit.astype(np.float64)
+        return lut(rng)
 
     def project(scan_or_range):
         if hasattr(scan_or_range, "field"):
-            rng = scan_or_range.field(ChanField.RANGE)
-            if hasattr(scan_or_range, "cached_xyz") and \
-                    os.environ.get("OUSTER_SDK_TPU_DEVICE_XYZ") != "0":
-                hit = scan_or_range.cached_xyz(0, use_extrinsics, rng)
-                if hit is not None:
-                    return hit.astype(np.float64)
-        else:
-            rng = np.asarray(scan_or_range)
-        return lut(rng)
+            return return_xyz(scan_or_range, 0)
+        return lut(np.asarray(scan_or_range))
 
+    project.return_xyz = return_xyz
     return project
 
 
@@ -204,6 +233,26 @@ def XYZLutFloatFactory(info, use_extrinsics: bool = False):
 # ops.xyzlut.
 XYZLut = XYZLutFactory
 XYZLutFloat = XYZLutFloatFactory
+
+
+# Deprecated aliases kept for reference parity
+# (ref: core/__init__.py deprecated_alias block, deprecated since 0.16.0).
+from ._deprecation import deprecated_alias, make_module_getattr  # noqa: E402
+
+deprecated_alias("version", "Version", Version, globals())
+deprecated_alias("lidar_mode", "LidarMode", LidarMode, globals())
+deprecated_alias("timestamp_mode", "TimestampMode", TimestampMode, globals())
+deprecated_alias("sensor_config", "SensorConfig", SensorConfig, globals())
+deprecated_alias("data_format", "DataFormat", DataFormat, globals())
+deprecated_alias("product_info", "ProductInfo", ProductInfo, globals())
+deprecated_alias("sensor_info", "SensorInfo", SensorInfo, globals())
+deprecated_alias("packet_format", "PacketFormat", PacketFormat, globals())
+deprecated_alias("SensorCalibration", "CalibrationStatus",
+                 CalibrationStatus, globals())
+deprecated_alias("invalid_version", "INVALID_VERSION",
+                 INVALID_VERSION, globals())
+
+__getattr__ = make_module_getattr(globals())
 
 
 __all__ = [
@@ -249,4 +298,20 @@ __all__ = [
     "voxel_downsample", "voxel_downsample_device",
     "words_tensor", "XYZLut", "XYZLutDevice", "XYZLutFactory",
     "XYZLutFloat", "XYZLutFloatFactory", "ZonePacket",
+    # the host layer, the enums and the reference's core names
+    "add_custom_profile", "AutoExposure", "BeamUniformityCorrector",
+    "BloomReductionOptimization", "BufferT", "CalibrationStatus",
+    "ClippedScanSource", "ColHeader", "deprecated_alias",
+    "euler_pose_to_matrix", "FieldInfo", "first_valid_column_pose",
+    "FrameBorder", "FullScaleRange", "INVALID_VERSION", "interp_pose_float",
+    "last_valid_column_pose", "make_module_getattr", "MaskedScanSource",
+    "MultipurposeIOMode", "NMEABaudRate", "OperatingMode", "packet_ts",
+    "Packets", "PacketType", "PacketValidationFailure",
+    "parse_and_validate_config", "parse_and_validate_metadata",
+    "parse_and_validate_sensor_config", "parse_config", "Polarity",
+    "poses_present", "ProductInfo", "quaternion_pose_to_matrix",
+    "RANGE_UNIT", "read_pointcloud", "ReducedScanSource", "ReturnOrder",
+    "Scans", "SensorConfig", "ShotLimitingStatus", "ThermalShutdownStatus",
+    "TimestampMode", "valid_packet_idxs", "ValidatorEntry",
+    "ValidatorIssues", "Version",
 ]

@@ -1,7 +1,9 @@
-"""IO namespace: pcap reading and writing, the pcap packet and scan
-sources, OSF reading, writing and file operations, the scan-source layer
-with open_source, scan_to_packets, the frame staging and the device
-engine."""
+"""IO namespace: the union of the reference's ``ouster.sdk.pcap``,
+``ouster.sdk.osf`` and ``ouster.sdk.bag`` export surfaces
+(ref: python/src/ouster/sdk/{pcap,osf,bag}/__init__.py): pcap reading and
+writing, the pcap packet and scan sources, OSF reading, writing and file
+operations, ROS bags, point-cloud files, the scan-source layer with
+open_source, save_scans, the frame staging and the device engine."""
 
 from .pcap import (  # noqa: F401
     PacketInfo,
@@ -44,7 +46,9 @@ from .osf_ops import (  # noqa: F401
     restore_osf_file_metablob,
     slice_and_cast,
 )
-from .save import scan_to_packets  # noqa: F401
+from .bag import BagPacketSource, BagScanSource  # noqa: F401
+from .save import save_scans, scan_to_packets  # noqa: F401
+from .cloud_io import read_pointcloud, write_pointcloud  # noqa: F401
 from .sources import (  # noqa: F401
     Collator,
     IoType,

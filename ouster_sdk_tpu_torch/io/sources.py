@@ -6,14 +6,17 @@ io_type.h:17-25). Sources are Python iterables; the registry maps an IoType
 to a constructor so backends self-register exactly like the reference's
 static registry (ref: impl/open_source_impl.h:98-122).
 
-Three backends are registered: PCAP (io/pcap_scan_source.py), whose scans
-decode on the device engine, OSF (io/osf_source.py), whose scans decode on
-the host and get their XYZ projected on the device, and SENSOR
+The backends: PCAP (io/pcap_scan_source.py), whose scans decode on the
+device engine, OSF (io/osf_source.py), whose scans decode on the host and
+get their XYZ projected on the device, SENSOR
 (sensor/sensor_scan_source.py), a live sensor's UDP streams batched into
-scans decoded on the device. Every other IoType is recognized and refused
-with "Unhandled source type" until its backend is ported. The options
-carry `device` beside the reference's: where the engine decodes or the
-projector runs (CUDA unless named).
+scans decoded on the device, BAG and MCAP (io/bag_source.py: ROS1,
+rosbag2 and MCAP bags batched on the host) and PLY, PCD, CSV and LAS
+(io/cloud_source.py: one scan built from a point-cloud file on the host).
+PNG and STL are recognized and refused with "Unhandled source type". The
+options carry `device` beside the reference's: where the engine decodes
+or the projector runs (CUDA unless named); the host backends refuse it.
+ScanSource.mask/clip/reduce chain the derived views of io/derived.py.
 """
 
 from __future__ import annotations
@@ -239,10 +242,6 @@ class LidarScanSet:
         return f"LidarScanSet({self._scans!r})"
 
 
-_DERIVED = ("mask/clip/reduce views are not ported yet (io/derived.py, "
-            "ROADMAP.md §1 item 10)")
-
-
 class ScanSource:
     """Iterable of LidarScanSet (ref: scan_source.h:48-194).
 
@@ -315,22 +314,26 @@ class ScanSource:
         return SingleScanSource(self, sensor_idx)
 
     # -- chaining derived views (ref: client.pyi:4402-4415) -----------------
-    # Their sources (io/derived.py) are not ported yet: ROADMAP.md §1
-    # item 10, the host layer.
     def mask(self, fields, masks) -> "ScanSource":
         """Zero the given fields outside per-sensor destaggered masks
-        (ref: client.pyi:4402 ScanSource.mask). Not ported yet."""
-        raise NotImplementedError(_DERIVED)
+        (ref: client.pyi:4402 ScanSource.mask)."""
+        from .derived import MaskedScanSource
+
+        return MaskedScanSource(self, fields, masks)
 
     def clip(self, fields, lower, upper) -> "ScanSource":
         """Clamp field values to [lower, upper], zeroing outside
-        (ref: client.pyi:4405 ScanSource.clip). Not ported yet."""
-        raise NotImplementedError(_DERIVED)
+        (ref: client.pyi:4405 ScanSource.clip)."""
+        from .derived import ClippedScanSource
+
+        return ClippedScanSource(self, fields, lower, upper)
 
     def reduce(self, beams) -> "ScanSource":
         """Reduce beam count per sensor
-        (ref: client.pyi:4412 ScanSource.reduce). Not ported yet."""
-        raise NotImplementedError(_DERIVED)
+        (ref: client.pyi:4412 ScanSource.reduce)."""
+        from .derived import ReducedScanSource
+
+        return ReducedScanSource(self, beams)
 
     def close(self) -> None:
         pass
@@ -668,6 +671,8 @@ def open_source(source: str, *, sensor_idx: int = -1, collate: bool = True,
     from . import osf_source  # noqa: F401
     from . import pcap_scan_source  # noqa: F401
     from ..sensor import sensor_scan_source  # noqa: F401
+    from . import bag_source  # noqa: F401
+    from . import cloud_source  # noqa: F401
 
     if len(source) == 0:
         raise ValueError("No valid source specified")
@@ -691,8 +696,9 @@ def open_source(source: str, *, sensor_idx: int = -1, collate: bool = True,
 
 def open_packet_source(source: str, **options):
     """URL -> PacketSource, with open_source's options and errors."""
-    # the PCAP backend registers its constructors when imported
+    # the backends register their constructors when imported
     from . import pcap_scan_source  # noqa: F401
+    from . import bag_source  # noqa: F401
 
     if len(source) == 0:
         raise ValueError("No valid source specified")

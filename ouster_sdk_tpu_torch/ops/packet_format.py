@@ -150,17 +150,27 @@ class PacketFormat:
         self.max_frame_id = g.max_frame_id
         self.zone_monitoring_enabled = fmt.zone_monitoring_enabled
 
-    @classmethod
-    def from_info(cls, info: SensorInfo) -> "PacketFormat":
+    @staticmethod
+    def from_info(info: SensorInfo) -> "PacketFormat":
         """Cached accessor (ref: parsing.cpp:1002-1016 get_format)."""
         fmt = info.format
         key = (fmt.udp_profile_lidar, fmt.udp_profile_imu, fmt.header_type,
                fmt.pixels_per_column, fmt.columns_per_packet,
                fmt.imu_measurements_per_packet, fmt.imu_packets_per_frame)
-        with cls._cache_lock:
-            if key not in cls._cache:
-                cls._cache[key] = cls(fmt)
-            return cls._cache[key]
+        with PacketFormat._cache_lock:
+            if key not in PacketFormat._cache:
+                PacketFormat._cache[key] = PacketFormat(fmt)
+            return PacketFormat._cache[key]
+
+    @staticmethod
+    def from_data_format(fmt: DataFormat) -> "PacketFormat":
+        """(ref: client.pyi PacketFormat.from_data_format)"""
+        return PacketFormat(fmt)
+
+    @staticmethod
+    def from_metadata(info: SensorInfo) -> "PacketFormat":
+        """(ref: client.pyi PacketFormat.from_metadata)"""
+        return PacketFormat.from_info(info)
 
     # -- structural views -------------------------------------------------
     def _as_words(self, buf: Union[bytes, np.ndarray]) -> np.ndarray:
@@ -466,6 +476,15 @@ class PacketWriter(PacketFormat):
     fabricate test streams (ref: ouster_client/include/ouster/impl/
     packet_writer.h, parsing.cpp:1030-1241)."""
 
+    @staticmethod
+    def from_info(info: SensorInfo) -> "PacketWriter":
+        """A new writer: the PacketFormat cache holds readers only."""
+        return PacketWriter(info)
+
+    @staticmethod
+    def from_data_format(fmt: DataFormat) -> "PacketWriter":
+        return PacketWriter(fmt)
+
     def new_packet(self) -> np.ndarray:
         return np.zeros(self.lidar_packet_size, dtype=np.uint8)
 
@@ -554,3 +573,21 @@ class PacketWriter(PacketFormat):
     def set_shutdown_countdown(self, packet, value: int) -> None:
         write_bits(_writable(packet).view("<u4"),
                    self.geom.countdown_thermal_shutdown, value)
+
+
+# The JAX package attaches these methods to the classes from module-level
+# functions of these names; here they are the classes' own methods, and
+# the names are aliases of them.
+_pf_field_bitness = PacketFormat.field_bitness
+_pf_from_data_format = PacketFormat.from_data_format
+_pf_from_metadata = PacketFormat.from_metadata
+_pw_from_info = PacketWriter.from_info
+_pw_from_data_format = PacketWriter.from_data_format
+_pw_buf = _writable
+_pw_col_words = PacketWriter._col_words
+_pw_set_col_timestamp = PacketWriter.set_col_timestamp
+_pw_set_col_measurement_id = PacketWriter.set_col_measurement_id
+_pw_set_col_status = PacketWriter.set_col_status
+_pw_set_alert_flags = PacketWriter.set_alert_flags
+_pw_set_shot_limiting_countdown = PacketWriter.set_shot_limiting_countdown
+_pw_set_shutdown_countdown = PacketWriter.set_shutdown_countdown

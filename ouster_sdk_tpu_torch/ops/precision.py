@@ -71,6 +71,11 @@ def dd_add(x_hi, x_lo, y_hi, y_lo):
     return fast_two_sum(s, e)
 
 
+def dd_to_f32(hi, lo):
+    """Round a double-single pair to one float32 (tensors or arrays)."""
+    return hi + lo
+
+
 def split_f64_array(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Split a float64 numpy array into an (hi, lo) float32 pair with
     hi + lo == x to f32-pair precision."""

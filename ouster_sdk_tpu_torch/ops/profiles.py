@@ -250,9 +250,40 @@ PROFILES: Dict[UDPProfileLidar, ProfileEntry] = {
 }
 
 
+# Runtime-extensible custom profiles (ref: profile_extension.cpp:136)
+_custom_profiles: Dict[UDPProfileLidar, ProfileEntry] = {}
+_custom_scan_slots: Dict[UDPProfileLidar, List[Tuple[str, np.dtype]]] = {}
+
+
+def add_custom_profile(profile_nr: int, name: str,
+                       fields: List[Tuple[str, FieldInfo]],
+                       chan_data_size: int) -> None:
+    """Register a custom UDP profile at runtime
+    (ref: ouster_client/src/profile_extension.cpp:136). As in the JAX
+    package, a name that is not a UDPProfileLidar value is its own key:
+    a DataFormat whose udp_profile_lidar is that name decodes by the
+    registered fields (PacketFormat, make_decode_plan, get_field_types)."""
+    profile = _extend_profile_enum(profile_nr, name)
+    _custom_profiles[profile] = ProfileEntry(chan_data_size, dict(fields))
+    _custom_scan_slots[profile] = [
+        (fname, finfo.dtype) for fname, finfo in fields
+        if not fname.startswith("RAW32")]
+
+
+def _extend_profile_enum(profile_nr: int, name: str) -> UDPProfileLidar:
+    existing = [p for p in UDPProfileLidar if p.value == name]
+    if existing:
+        return existing[0]
+    # a pseudo member: the name itself keys the registries, and callers
+    # look the profile up through lookup_profile_entry
+    return name  # type: ignore[return-value]
+
+
 def lookup_profile_entry(profile: UDPProfileLidar) -> ProfileEntry:
     if profile in PROFILES:
         return PROFILES[profile]
+    if profile in _custom_profiles:
+        return _custom_profiles[profile]
     raise ValueError("Unknown lidar udp profile")
 
 
@@ -311,6 +342,8 @@ DEFAULT_SCAN_FIELDS: Dict[UDPProfileLidar, List[Tuple[str, np.dtype]]] = {
 def lookup_scan_fields(profile: UDPProfileLidar) -> List[Tuple[str, np.dtype]]:
     if profile in DEFAULT_SCAN_FIELDS:
         return list(DEFAULT_SCAN_FIELDS[profile])
+    if profile in _custom_scan_slots:
+        return list(_custom_scan_slots[profile])
     raise ValueError("Unknown lidar udp profile")
 
 

@@ -124,7 +124,10 @@ def make_decode_plan(info_or_format, field_names: Optional[Tuple[str, ...]]
         staged_status_word = status_word
 
     return DecodePlan(
-        profile=fmt.udp_profile_lidar.value,
+        # a custom profile (ops.profiles.add_custom_profile) is its name
+        profile=fmt.udp_profile_lidar.value
+        if hasattr(fmt.udp_profile_lidar, "value") else str(
+            fmt.udp_profile_lidar),
         h=fmt.pixels_per_column,
         w=fmt.columns_per_frame,
         cpp=fmt.columns_per_packet,

@@ -252,31 +252,43 @@ def test_open_source_unsupported_extension(tmp_path):
 
 
 def test_open_source_only_pcap_is_registered(tmp_path):
-    """PCAP and OSF are the registered scan sources; every other IoType is
-    recognized and refused with the JAX package's own text until its
-    backend is ported, and OSF has no packet source, as there."""
-    for ext, name in ((".bag", "BAG"), (".ply", "PLY")):
+    """PNG and STL are recognized and refused with the JAX package's own
+    text; the bag and point-cloud backends are registered, so a file of
+    their type that is not one fails in their reader as in the JAX
+    package; OSF and the point clouds have no packet source, as there."""
+    for ext, name in ((".png", "PNG"), (".stl", "STL")):
         p = tmp_path / f"x{ext}"
         p.write_bytes(b"\0" * 32)
         with pytest.raises(pt.SourceURLException) as got:
             pt.open_source(str(p))
+        with pytest.raises(jsources.SourceURLException) as want:
+            jsources.open_source(str(p))
+        assert str(got.value) == str(want.value)
         assert isinstance(got.value.get_sub_exception(), NotImplementedError)
         assert ("Could not open scan source. Unhandled source type "
                 f"{name}.") in str(got.value)
+    for ext in (".bag", ".mcap", ".ply", ".pcd", ".las"):
+        p = tmp_path / f"x{ext}"
+        p.write_bytes(b"\0" * 32)
+        with pytest.raises(pt.SourceURLException) as got:
+            pt.open_source(str(p))
+        with pytest.raises(jsources.SourceURLException) as want:
+            jsources.open_source(str(p))
+        assert str(got.value) == str(want.value)
+        assert "Unhandled source type" not in str(got.value)
+    for ext in (".ply", ".osf"):
+        p = tmp_path / f"x{ext}"
+        p.write_bytes(b"\0" * 32)
         with pytest.raises(pt.SourceURLException,
                            match="Could not open packet source"):
             pt.open_packet_source(str(p))
     p = tmp_path / "x.osf"
-    p.write_bytes(b"\0" * 32)
     with pytest.raises(pt.SourceURLException) as got:
         pt.open_source(str(p))
     with pytest.raises(jsources.SourceURLException) as want:
         jsources.open_source(str(p))
     assert str(got.value) == str(want.value)
     assert "invalid OSF file: bad header identifier" in str(got.value)
-    with pytest.raises(pt.SourceURLException,
-                       match="Could not open packet source"):
-        pt.open_packet_source(str(p))
 
 
 def test_open_source_options(tmp_path):
@@ -329,11 +341,14 @@ def test_unindexed_source(tmp_path):
         src.scans_num
     with pytest.raises(TypeError):
         src[0]
-    for call in (lambda: src.mask(["RANGE"], [None]),
-                 lambda: src.clip(["RANGE"], 0, 10),
-                 lambda: src.reduce([16])):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            call()
+    # the derived views of an unindexed source are unindexed too
+    for view in (src.mask(["RANGE"], [None]), src.clip(["RANGE"], 0, 10),
+                 src.reduce([16])):
+        assert not view.is_indexed and not view.is_live
+        with pytest.raises(TypeError, match="unindexed"):
+            len(view)
+        with pytest.raises(RuntimeError, match="Cannot perform 'scans_num'"):
+            view.scans_num
 
 
 @pytest.fixture(params=["1", "0"], ids=["engine", "batcher"])
