@@ -116,7 +116,19 @@ dewarp, served from the XYZ cache (hits counted) and equal to the f64
 host LUT, and missing the cache for RANGE once clip changed it; a custom
 profile (add_custom_profile) decoded by the engine on the card bit-equal
 to the ScanBatcher; ms/scan of each view, writer and reader and MB/scan
-of each writer printed.
+of each writer printed. Then the command line and the pose optimizer,
+through ouster_sdk_tpu_torch.cli.util (no click):
+run_benchmark over 10 frames of the main capture (read, write, batch,
+destagger, cartesian, the planar projection on the card and host against
+device ICP, which must launch planar_project and icp_nn and agree within
+0.05 m), system_info(devices=True) naming the card, and
+optimize_osf_trajectory over the SLAM run's 30 scans saved to an OSF with
+the device backend's poses (an ABSOLUTE_POSE at the last scan from the
+ground truth: every scan written, each corrected rigidly, the last closer
+to the truth, the OSF projector's launches counted); and, since the card's
+machine has click, `python3 -m ouster_sdk_tpu_torch source <yard> slice
+:12 slam --backend device save <osf>` and `util benchmark --frames 4
+<main capture>` in processes of their own.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -974,6 +986,15 @@ def _run(torch, port, pk, dev, tmp) -> int:
     print(f"host layer phase: {time.perf_counter() - t0:.1f} s; "
           f"planar_project<planar>: {host_launches} more launches (the OSF "
           f"projector); {kernels[0]['launches']} in all")
+    t0 = time.perf_counter()
+    made = _run_cli(torch, port, pk, dev, tmp, *captures[MAIN_PROFILE], slam)
+    for case in pk.CASES:
+        kernels[pk.CASES.index(case)]["launches"] += made.get(case, 0)
+    kernels[-1]["launches"] += made["icp_nn"]
+    kernels[-1]["index_launches"] += made["icp_nn_index"]
+    print(f"cli and pose optimizer phase: {time.perf_counter() - t0:.1f} s; "
+          f"more launches: planar_project<planar> {made['planar']}, "
+          f"<planar_dual> {made['planar_dual']}, icp_nn {made['icp_nn']}")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -3724,7 +3745,10 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     once the vehicle cruises) and to the host one (<= 0.05 m), and the TF32
     run to the first device run bit for bit. Returns what the icp nn phase
     needs: the launches of the first device run, the inputs of the
-    largest registration and the scene's world points."""
+    largest registration and the scene's world points; and what the cli
+    phase needs: the first device run's scans with the poses it wrote
+    (`run`), the ground truth relative to the first frame (`truth`) and
+    the capture (`path`)."""
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
     from ouster_sdk_tpu_torch.slam import device_icp as di
     from ouster_sdk_tpu_torch.slam import engine as se
@@ -3855,8 +3879,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     runs = {"device": [], "host": []}
     kept = []
     nn.reset_launches()
-    dev_poses, frames, secs = drive("device", keep=(YARD_RAMP,
-                                                    SLAM_FRAMES - 1))
+    dev_poses, frames, secs = drive("device", keep=range(SLAM_FRAMES))
     launches = nn.launches["icp_nn"]
     index_launches = nn.launches["icp_nn_index"]
     runs["device"].append(secs)
@@ -3968,7 +3991,8 @@ def _run_slam(torch, port, dev, tmp) -> dict:
           f"ms/frame")
     return dict(launches=launches, index_launches=index_launches,
                 largest=largest, gathered=gathered, frames=frames,
-                info=info, scans=kept)
+                info=info, scans=[kept[YARD_RAMP], kept[-1]], run=kept,
+                truth=gt, path=path)
 
 
 def _candidate_pairs(torch, nn, src, map_pts, voxel):
@@ -4407,6 +4431,214 @@ def _run_zone(torch, port, dev, info, scans) -> None:
 
 
 # -- SLAM: an outdoor yard driven through at vehicle speed --------------------
+
+CLI_FRAMES = 10       # frames of the main capture `util benchmark` reads
+CLI_SLAM_FRAMES = 12  # yard frames the `slam` subprocess registers
+#: Whether the GPU machine this script is run on has click: it does
+#: (recorded in PERF.md section 6). With click the phase also runs the
+#: command line itself in subprocesses.
+CLICK_ON_CARD = True
+
+
+def _run_cli(torch, port, pk, dev, tmp, main_info, main_path, slam) -> dict:
+    """The command line's device stages and the pose optimizer, driven
+    through ouster_sdk_tpu_torch.cli.util and slam.pose_optimizer (no
+    click): run_benchmark over CLI_FRAMES frames of the main capture (a
+    metadata json beside it, as a user's capture has one), which must
+    launch planar_project (the device stage) and icp_nn (icp_device), with
+    icp_device within 0.05 m of icp_host and its report written;
+    system_info(devices=True), which must name the card; the SLAM
+    run's scans with the device backend's poses saved to an OSF through
+    save_scans, then optimize_osf_trajectory with an ABSOLUTE_POSE at the
+    last scan from the yard's ground truth, which must read through the
+    OSF projector (planar_project launches), write every scan, correct
+    each scan rigidly and bring the last scan closer to the truth.
+    Returns the launches of each kernel case this phase made."""
+    import copy
+
+    from ouster_sdk_tpu_torch.cli import util
+    from ouster_sdk_tpu_torch.io import osf as osf_mod
+    from ouster_sdk_tpu_torch.io.save import save_scans
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam import device_icp as di
+    from ouster_sdk_tpu_torch.slam import kiss_icp as ki
+    from ouster_sdk_tpu_torch.slam import pose_optimizer as po
+
+    made = {}
+    # util benchmark: the capture with its metadata json beside it
+    info = copy.deepcopy(main_info)
+    info.config.udp_profile_lidar = info.format.udp_profile_lidar
+    info.config.udp_port_lidar = 7502
+    bench = os.path.join(tmp, "bench.pcap")
+    os.symlink(main_path, bench)
+    with open(os.path.join(tmp, "bench.json"), "w") as f:
+        f.write(info.to_json_string())
+    poses = {}
+
+    def keep_pose(cls, tag):
+        register = cls.register_frame
+
+        def call(self, *args, **kwargs):
+            poses[tag] = register(self, *args, **kwargs)
+            return poses[tag]
+        return register, call
+
+    lines = []
+    pk.reset_launches()
+    nn.reset_launches()
+    originals = {cls: keep_pose(cls, tag) for cls, tag in (
+        (ki.KissICP, "host"), (di.DeviceICP, "device"))}
+    with tempfile.TemporaryDirectory(dir=tmp) as td:
+        t0 = time.perf_counter()
+        try:
+            for cls, (_, call) in originals.items():
+                cls.register_frame = call
+            report = util.run_benchmark(
+                bench, frames=CLI_FRAMES, report_dir=td, echo=lines.append)
+        finally:
+            for cls, (register, _) in originals.items():
+                cls.register_frame = register
+        secs = time.perf_counter() - t0
+        check(len(os.listdir(td)) == 1, "util benchmark wrote no report")
+    bench_planar = dict(pk.launches)
+    bench_nn = dict(nn.launches)
+    check(bench_planar["planar_dual"] > 0,
+          "util benchmark's device stage never launched planar_project")
+    check(bench_nn["icp_nn"] > 0,
+          "util benchmark's icp_device never launched icp_nn")
+    apart = float(np.linalg.norm(poses["device"][:3, 3]
+                                 - poses["host"][:3, 3]))
+    check(apart <= 0.05, f"util benchmark: icp_device {apart} m from "
+          f"icp_host")
+    times = report["times"]
+    check(report["pcap"]["n_frames"] == CLI_FRAMES,
+          f"util benchmark read {report['pcap']['n_frames']} frames")
+    print("cli util benchmark (run_benchmark, main capture, "
+          f"{CLI_FRAMES} frames, ms/frame): "
+          + ", ".join(f"{k} {v['per_frame'] * 1e3:.3f}"
+                      for k, v in times.items())
+          + f"; icp_device within {apart:.2e} m of icp_host; launches "
+          f"planar_project<planar_dual> {bench_planar['planar_dual']}, "
+          f"icp_nn {bench_nn['icp_nn']} (index {bench_nn['icp_nn_index']});"
+          f" {secs:.1f} s [{CARD}]")
+    made["planar_dual"] = bench_planar["planar_dual"]
+    made["icp_nn"] = bench_nn["icp_nn"]
+    made["icp_nn_index"] = bench_nn["icp_nn_index"]
+
+    sysinfo = util.system_info(devices=True)
+    name = torch.cuda.get_device_name(0)
+    check([d["kind"] for d in sysinfo["devices"]][:1] == [name]
+          and sysinfo["devices"][0]["platform"] == "gpu",
+          f"system_info(devices=True) gave {sysinfo['devices']}")
+    print(f"cli util system-info --devices: {sysinfo['devices']}")
+
+    # pose_optimize: the SLAM run's scans with the device backend's poses
+    scans, gt, yinfo = slam["run"], slam["truth"], slam["info"]
+    src = os.path.join(tmp, "slam.osf")
+    out = os.path.join(tmp, "slam_optimized.osf")
+    t0 = time.perf_counter()
+    save_scans(src, [yinfo], [port.LidarScanSet([s]) for s in scans])
+    save_s = time.perf_counter() - t0
+    mid = [int(np.flatnonzero(s.status & 1)[len(np.flatnonzero(
+        s.status & 1)) // 2]) for s in scans]
+    cfg = {"loss_function": "HuberLoss", "constraints": [
+        {"type": "ABSOLUTE_POSE",
+         "timestamp": int(scans[-1].timestamp[mid[-1]]),
+         "pose": [float(v) for v in gt[-1].ravel()],
+         "rotation_weight": 100.0, "translation_weight": 100.0}]}
+    pk.reset_launches()
+    # every set of the input is collated, so the optimizer writes each
+    # with one save_set (which calls save for its scan)
+    solve = count_calls(po.PoseOptimizer, "solve")
+    saved_sets = count_calls(osf_mod.Writer, "save_set")
+    t0 = time.perf_counter()
+    with solve, saved_sets:
+        n = po.optimize_osf_trajectory(src, out, json.dumps(cfg))
+    total = time.perf_counter() - t0
+    check(saved_sets.n == n, f"pose_optimize: {saved_sets.n} save_set "
+          f"calls for {n} scans")
+    po_launches = pk.launches["planar"]
+    check(po_launches > 0, "pose_optimize never launched planar_project "
+          "(the OSF projector)")
+    check(n == len(scans), f"pose_optimize wrote {n} of {len(scans)} scans")
+    back = [ls[0] for ls in port.open_source(out)]
+    check(len(back) == len(scans),
+          f"the optimized OSF holds {len(back)} scans")
+    worst = 0.0
+    for a, b in zip(back, scans):
+        fix = a.pose @ np.linalg.inv(b.pose)
+        worst = max(worst, float(np.abs(fix - fix[:1]).max()))
+        check(np.array_equal(a.field("RANGE"), b.field("RANGE")),
+              "pose_optimize changed a range image")
+    check(worst <= 1e-6, f"pose_optimize: a scan's correction varies by "
+          f"{worst} over its columns")
+    err_in = float(np.linalg.norm(scans[-1].pose[mid[-1]][:3, 3]
+                                  - gt[-1][:3, 3]))
+    err_out = float(np.linalg.norm(back[-1].pose[mid[-1]][:3, 3]
+                                   - gt[-1][:3, 3]))
+    check(err_out < err_in, f"pose_optimize: last-scan error {err_out} m, "
+          f"{err_in} m before")
+    write_s = saved_sets.seconds
+    print(f"cli pose_optimize ({len(scans)} yard scans "
+          f"{yinfo.format.pixels_per_column}x"
+          f"{yinfo.format.columns_per_frame} dual, device poses, "
+          f"ABSOLUTE_POSE at the last scan): read and the rest "
+          f"{(total - solve.seconds - write_s) * 1e3:.1f} ms, solve "
+          f"{solve.seconds * 1e3:.1f} ms, write {write_s * 1e3:.1f} ms "
+          f"({(write_s / n) * 1e3:.2f} ms/scan), total {total:.2f} s; "
+          f"the input OSF written in {save_s:.2f} s; last-scan error "
+          f"{err_in:.4f} -> {err_out:.4f} m; corrections rigid within "
+          f"{worst:.1e}; planar_project<planar> {po_launches} launches in "
+          f"the optimizer, {pk.launches['planar'] - po_launches} re-reading "
+          f"[{CARD}]")
+    made["planar"] = pk.launches["planar"]
+    if CLICK_ON_CARD:
+        _run_cli_subprocesses(bench, slam["path"], yinfo, tmp)
+    for f in (src, out, bench, os.path.join(tmp, "bench.json")):
+        os.remove(f)
+    return made
+
+
+def _run_cli_subprocesses(bench, yard, yard_info, tmp) -> None:
+    """The command line as a user runs it, each command in a process of its
+    own that must exit 0: `python3 -m ouster_sdk_tpu_torch source
+    <yard> slice :CLI_SLAM_FRAMES slam --backend device -v 1.0 save <osf>`
+    (the SLAM phase's capture, a metadata json beside it) and `util
+    benchmark --frames 4 <main capture>`. Depth is cut to keep the phase
+    near a minute: each process takes seconds to reach the card."""
+    import copy
+
+    info = copy.deepcopy(yard_info)
+    info.config.udp_profile_lidar = info.format.udp_profile_lidar
+    info.config.udp_port_lidar = 7502
+    meta = os.path.splitext(yard)[0] + ".json"
+    with open(meta, "w") as f:
+        f.write(info.to_json_string())
+    osf = os.path.join(tmp, "cli_slam.osf")
+    for args, want in (
+            (["source", yard, "slice", f":{CLI_SLAM_FRAMES}", "slam",
+              "--backend", "device", "-v", "1.0", "save", osf],
+             f"wrote {CLI_SLAM_FRAMES} scans to {osf}"),
+            (["util", "benchmark", "--frames", "4", bench], "icp_device")):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "ouster_sdk_tpu_torch",
+                              *args], cwd=HERE, capture_output=True,
+                             text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(res.returncode == 0 and want in res.stdout,
+              f"python3 -m ouster_sdk_tpu_torch {' '.join(args[:3])} ... "
+              f"exited {res.returncode}: {res.stdout[-1000:]}"
+              f"{res.stderr[-2000:]}")
+        print(f"cli subprocess python3 -m ouster_sdk_tpu_torch "
+              f"{' '.join(a for a in args if a not in (yard, bench, osf))}"
+              f": exit 0 in {secs:.1f} s [{CARD}]")
+        if args[0] == "util":
+            print("cli subprocess util benchmark output: " + "; ".join(
+                ln.strip() for ln in res.stdout.splitlines()
+                if "ms/frame" in ln))
+    os.remove(osf)
+    os.remove(meta)
+
 
 SLAM_FRAMES = 30
 YARD_SPEED = 1.0                   # m a frame: 10 m/s at 10 Hz

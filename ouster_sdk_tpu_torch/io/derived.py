@@ -187,6 +187,24 @@ def filter_xyz(scan: LidarScan, xyzlut, axis_idx: int,
     return scan
 
 
+def reduce_info(info, beams: int):
+    """A copy of a SensorInfo with every `h // beams`-th beam kept: the
+    sensor_info of reduce_scan's output (ref: reduced_scan_source.py)."""
+    import copy
+
+    h = info.format.pixels_per_column
+    if beams <= 0 or h % beams != 0:
+        raise ValueError(f"beam count {beams} must evenly divide {h}")
+    factor = h // beams
+    new_info = copy.deepcopy(info)
+    new_info.format.pixels_per_column = beams
+    new_info.format.pixel_shift_by_row = \
+        list(info.format.pixel_shift_by_row[::factor])
+    new_info.beam_azimuth_angles = info.beam_azimuth_angles[::factor]
+    new_info.beam_altitude_angles = info.beam_altitude_angles[::factor]
+    return new_info
+
+
 def reduce_scan(scan: LidarScan, beams: int) -> LidarScan:
     """Decimate beams to `beams` rows (ref: scan_ops.py:242 reduce_by_factor;
     beams must divide the current count evenly)."""
@@ -199,16 +217,7 @@ def reduce_scan(scan: LidarScan, beams: int) -> LidarScan:
         return scan
 
     info = scan.sensor_info
-    new_info = None
-    if info is not None:
-        import copy
-
-        new_info = copy.deepcopy(info)
-        new_info.format.pixels_per_column = beams
-        new_info.format.pixel_shift_by_row = \
-            list(info.format.pixel_shift_by_row[::factor])
-        new_info.beam_azimuth_angles = info.beam_azimuth_angles[::factor]
-        new_info.beam_altitude_angles = info.beam_altitude_angles[::factor]
+    new_info = None if info is None else reduce_info(info, beams)
 
     out = LidarScan(w=scan.w, h=beams,
                     field_types=[],
@@ -324,27 +333,12 @@ class ReducedScanSource(_ForwardsParent, ScanSource):
     """(ref: sdk/core/reduced_scan_source.py)"""
 
     def __init__(self, parent: ScanSource, beams: List[int]):
-        import copy
-
         if len(beams) != len(parent.sensor_info):
             raise ValueError(
                 f"beams count ({len(beams)}) must match the number of "
                 f"sensors ({len(parent.sensor_info)})")
-        infos = []
-        for info, b in zip(parent.sensor_info, beams):
-            h = info.format.pixels_per_column
-            if b <= 0 or h % b != 0:
-                raise ValueError(
-                    f"beam count {b} must evenly divide {h}")
-            ni = copy.deepcopy(info)
-            factor = h // b
-            ni.format.pixels_per_column = b
-            ni.format.pixel_shift_by_row = \
-                list(info.format.pixel_shift_by_row[::factor])
-            ni.beam_azimuth_angles = info.beam_azimuth_angles[::factor]
-            ni.beam_altitude_angles = info.beam_altitude_angles[::factor]
-            infos.append(ni)
-        super().__init__(infos)
+        super().__init__([reduce_info(info, b)
+                          for info, b in zip(parent.sensor_info, beams)])
         self._parent = parent
         self._beams = beams
 

@@ -9,9 +9,10 @@ node id is one case here, which passes only if it passed there.
 
 The list holds the cases of the JAX package's tests for the host layer's
 modules (derived views, filters, scan-source semantics, PNG series, point
-clouds, bags, utils) that neither import jax nor read the reference SDK's
-fixture files (cases needing those are left out: they skip here). It grows
-with the modules each later slice ports."""
+clouds, bags, utils), the pose optimizer and the CLI's plugin runner that
+neither import jax nor read the reference SDK's fixture files (cases
+needing those, the viewer or the slow marker are left out). It grows with
+the modules each later slice ports."""
 
 import json
 import os
@@ -30,6 +31,32 @@ CASES = [
     "tests/test_cloud_source.py::test_cloud_file_opens_as_scan_source[pcd]",
     "tests/test_cloud_source.py::test_cloud_file_opens_as_scan_source[ply]",
     "tests/test_cloud_source.py::test_small_cloud_grid",
+    "tests/test_cli_plugins.py::test_bad_plugin_traceback_flag",
+    "tests/test_cli_plugins.py::test_bad_plugin_warns_and_skips",
+    "tests/test_cli_plugins.py::test_good_plugin_registers_command",
+    "tests/test_cli_plugins.py::test_plugin_subpackage_modules_load",
+    "tests/test_cli_plugins.py::test_run_exit_code_client_error",
+    "tests/test_cli_plugins.py::test_run_exit_code_source_args",
+    "tests/test_cli_plugins.py::test_run_exit_code_usage_error",
+    "tests/test_cli_plugins.py::test_run_internal_error_traceback",
+    "tests/test_cli_plugins.py::test_source_args_exception_api",
+    "tests/test_cli_plugins.py::test_version_lists_plugins",
+    "tests/test_pose_optimizer.py::test_absolute_pose_anchors_pull_trajectory",
+    "tests/test_pose_optimizer.py::test_loss_function_enum_mapping",
+    "tests/test_pose_optimizer.py::test_point_constraints",
+    "tests/test_pose_optimizer.py::test_pose_to_pose_loop_closure",
+    "tests/test_pose_optimizer.py::test_resample_trajectory_knots",
+    "tests/test_pose_optimizer.py::test_trajectory_exports",
+    "tests/test_pose_optimizer_verification.py::"
+    "test_ceres_scipy_loss_curve_identity",
+    "tests/test_pose_optimizer_verification.py::"
+    "test_fd_jacobian_within_declared_sparsity",
+    "tests/test_pose_optimizer_verification.py::"
+    "test_loss_mapping_rejects_nothing_silently",
+    "tests/test_pose_optimizer_verification.py::"
+    "test_residuals_match_reference_functors",
+    "tests/test_pose_optimizer_verification.py::"
+    "test_solver_reaches_known_analytic_optimum",
     "tests/test_utils.py::test_dewarp_shapes",
     "tests/test_utils.py::test_forward_slicer[-1--7--1]",
     "tests/test_utils.py::test_forward_slicer[-1-0--3]",

@@ -363,6 +363,60 @@ def test_slam_normals_downsample_run_with_jax_unimportable(tmp_path):
     assert res.stdout.strip().endswith("ok")
 
 
+def test_cli_util_and_pose_optimizer_run_without_click(tmp_path):
+    """ouster_sdk_tpu_torch.cli and cli.util import, and run_benchmark,
+    system_info and the pose optimizer run, with click blocked as well as
+    jax and the JAX package; asking for the click group then raises."""
+    code = textwrap.dedent(f"""
+        import sys
+        for name in ("jax", "ouster_sdk_tpu", "click"):
+            sys.modules[name] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np, torch
+        import chip_smoke as cs
+        import ouster_sdk_tpu_torch as pt
+        import ouster_sdk_tpu_torch.cli as cli
+        from ouster_sdk_tpu_torch.cli import util
+        from ouster_sdk_tpu_torch.core.types import UDPProfileLidar
+        from ouster_sdk_tpu_torch.slam import pose_optimizer as po
+        info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
+        info.config.udp_profile_lidar = UDPProfileLidar(cs.MAIN_PROFILE)
+        info.config.udp_port_lidar = 7502
+        path = {str(tmp_path / "yard.pcap")!r}
+        truth = cs.yard_capture(pt, path, info, 3)
+        with open(path[:-5] + ".json", "w") as f:
+            f.write(info.to_json_string())
+        lines = []
+        report = util.run_benchmark(path, frames=2, echo=lines.append,
+                                    device="cpu")
+        assert sorted(report) == ["pcap", "sys_info", "times"]
+        assert {{"device_xyz", "icp_host", "icp_device"}} <= set(
+            report["times"])
+        assert any("icp_device" in ln for ln in lines)
+        assert sorted(util.system_info(True)) == [
+            "cpuinfo", "devices", "packages", "platform"]
+        opt = po.PoseOptimizer.from_trajectory(
+            [0, 1, 2], list(truth), po.SolverConfig(
+                max_num_iterations=5, process_printout=False))
+        opt.add_constraint(po.AbsolutePoseConstraint(2, truth[0]))
+        assert len(opt.solve()) == 3
+        try:
+            cli.cli
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("the click group imported without click")
+        assert "click" not in sys.modules or sys.modules["click"] is None
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
+
 def test_entry_points_default_to_cuda():
     _, pinfo = infos(DUAL)
     if torch.cuda.is_available():
