@@ -128,7 +128,21 @@ ground truth: every scan written, each corrected rigidly, the last closer
 to the truth, the OSF projector's launches counted); and, since the card's
 machine has click, `python3 -m ouster_sdk_tpu_torch source <yard> slice
 :12 slam --backend device save <osf>` and `util benchmark --frames 4
-<main capture>` in processes of their own.
+<main capture>` in processes of their own. Last, the viewer (host code
+over the card's scans): SimpleViz snapshots of 8 frames of the main cell
+at 1024x768 through `source <pcap> slice :8 viz --out` (click's runner in
+this process, the engine on the card), over the numpy ScanBatcher and over
+an OSF of the same frames (the projector on the card), byte-equal across
+the three, with ms a snapshot, the device syncs each snapshot made on the
+viewer's thread and each route's planar_project launches checked; the
+same over OpenGL where the host has a surfaceless EGL (else the reason is
+printed); `pose_optimize --viz-snapshot` (PNG pair and .html) over 8 SLAM
+scans, projector on and off; `ply_to_png` and `source <ply> model_viz`
+on a PLY of yard scans read by the engine and by the batcher; and the
+examples package (pcap_3d_one_scan, pcap_to_ply, pcap_to_csv,
+colormap_strip, zone_states_example, osf_read_scans, viz_scene,
+viz_image_events) over the card's sources, held byte-equal to the
+batcher's, the OSF XYZ within 1 f32 ulp of the f64 host LUT.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -995,6 +1009,14 @@ def _run(torch, port, pk, dev, tmp) -> int:
     print(f"cli and pose optimizer phase: {time.perf_counter() - t0:.1f} s; "
           f"more launches: planar_project<planar> {made['planar']}, "
           f"<planar_dual> {made['planar_dual']}, icp_nn {made['icp_nn']}")
+    t0 = time.perf_counter()
+    viz_launches = _run_viz(torch, port, pk, dev, tmp,
+                            *captures[MAIN_PROFILE], slam)
+    kernels[0]["launches"] += viz_launches
+    print(f"viz phase: {time.perf_counter() - t0:.1f} s; "
+          f"planar_project<planar>: {viz_launches} more launches (the OSF "
+          f"projector under the viewer, pose_optimize and the examples); "
+          f"{kernels[0]['launches']} in all")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -1584,6 +1606,39 @@ class count_calls:
 
     def __exit__(self, *exc):
         setattr(self.module, self.name, self.fn)
+
+
+def synced(torch, fn, sink: list):
+    """fn() with torch's sync debug mode at "warn": appends to `sink` the
+    places (file:line) of the device syncs made on this thread while it
+    ran, and returns its result. The first such window in a process
+    counts one sync of its own (at torch/cuda/__init__.py): open an empty
+    one first."""
+    import gc
+    import warnings
+
+    me, seen = threading.get_ident(), []
+
+    def show(message, category, filename, lineno, *rest):
+        if threading.get_ident() == me and "synchroniz" in str(message):
+            where = os.path.join(*os.path.normpath(filename)
+                                 .split(os.sep)[-2:])
+            seen.append(f"{where}:{lineno}")
+
+    # no collection inside the window: a tensor freed by the collector is
+    # not the window's
+    gc.collect()
+    gc.disable()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            return fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            gc.enable()
+            sink.append(seen)
 
 
 def copies(trace, direction: str) -> int:
@@ -3842,31 +3897,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     frame_syncs = []
 
     def sync_window(fn):
-        import gc
-        import warnings
-
-        me, seen = threading.get_ident(), []
-
-        def show(message, category, filename, lineno, *rest):
-            if threading.get_ident() == me and "synchroniz" in str(message):
-                where = os.path.join(*os.path.normpath(filename)
-                                     .split(os.sep)[-2:])
-                seen.append(f"{where}:{lineno}")
-
-        # no collection inside the window: a tensor freed by the collector
-        # is not the registration's
-        gc.collect()
-        gc.disable()
-        with warnings.catch_warnings():
-            warnings.simplefilter("always")
-            warnings.showwarning = show
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                return fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-                gc.enable()
-                frame_syncs.append(seen)
+        return synced(torch, fn, frame_syncs)
 
     # the first window in a process counts one sync of its own (at
     # torch/cuda/__init__.py), the next ones none: open one uncounted
@@ -4639,6 +4670,351 @@ def _run_cli_subprocesses(bench, yard, yard_info, tmp) -> None:
     os.remove(osf)
     os.remove(meta)
 
+
+
+VIZ_FRAMES = 8        # frames of the main capture the viewer snapshots
+VIZ_PO_SCANS = 8      # SLAM scans in the pose optimizer's viewer input
+VIZ_PLY_SCANS = 2     # yard scans saved as PLY for ply_to_png / model_viz
+
+
+class viz_consume:
+    """SimpleViz._consume (update, accumulators, snapshot) counted while
+    the block runs: its calls, host seconds and the device syncs each call
+    made on the viewer's thread."""
+
+    def __init__(self, torch, SimpleViz):
+        self.torch, self.cls = torch, SimpleViz
+        self.seconds, self.syncs = [], []
+
+    def __enter__(self):
+        self.fn = consume = self.cls._consume
+        me = self
+
+        def counted(self, scans, n):
+            t0 = time.perf_counter()
+            try:
+                return synced(me.torch, lambda: consume(self, scans, n),
+                              me.syncs)
+            finally:
+                me.seconds.append(time.perf_counter() - t0)
+
+        self.cls._consume = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._consume = self.fn
+
+
+def _run_viz(torch, port, pk, dev, tmp, main_info, main_path, slam) -> int:
+    """The viewer, ply_to_png and the examples over the card's sources.
+    SimpleViz snapshots (1024x768, every frame) of VIZ_FRAMES frames of
+    the main capture through `source <pcap> slice :N viz --out` (the
+    command line in this process; the engine on the card), through the API
+    over the numpy ScanBatcher (OUSTER_SDK_TPU_DEVICE_DECODE=0) and over an
+    OSF of the same frames (the projector on the card, planar_project once
+    a window of 4 scans): every PNG byte-equal across the three, with ms a
+    snapshot, the syncs each made on the viewer's thread and the launches
+    of each route checked; the same over OpenGL where this host has a
+    surfaceless EGL, else why not. `pose_optimize --viz-snapshot` (PNG pair
+    and .html) over VIZ_PO_SCANS SLAM scans with the device backend's
+    poses, projector on and off; `model_viz` and `ply_to_png` on a PLY
+    that save_scans wrote from yard scans read by the engine and by the
+    batcher; and the examples (pcap, osf, colormaps, zone states, viz,
+    viz_image_events) on the card's sources against the batcher's: files
+    and printed text byte-equal, XYZ from the OSF projector's cache within
+    1 f32 ulp of the f64 host LUT. Returns planar_project<planar>'s
+    launches."""
+    import contextlib
+    import copy
+    import io as _io
+    import shutil
+
+    from click.testing import CliRunner
+
+    from ouster_sdk_tpu_torch.cli import cli
+    from ouster_sdk_tpu_torch.examples import colormaps as ex_cm
+    from ouster_sdk_tpu_torch.examples import osf as ex_osf
+    from ouster_sdk_tpu_torch.examples import pcap as ex_pcap
+    from ouster_sdk_tpu_torch.examples import viz as ex_viz
+    from ouster_sdk_tpu_torch.examples import viz_image_events as ex_events
+    from ouster_sdk_tpu_torch.examples import \
+        zone_monitor_zone_states_example as ex_zone
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.io.save import save_scans
+    from ouster_sdk_tpu_torch.slam import ply_to_png
+    from ouster_sdk_tpu_torch.slam import pose_optimizer as po
+    from ouster_sdk_tpu_torch.viz import gl as vgl
+    from ouster_sdk_tpu_torch.viz.core import SimpleViz
+
+    env = "OUSTER_SDK_TPU_DEVICE_DECODE"
+    launches = 0
+    work = os.path.join(tmp, "viz")
+    os.makedirs(work)
+
+    @contextlib.contextmanager
+    def route(value):
+        """The source policy at `value` (None: unset), the engine's and
+        the projector's counters and the kernel's launches zeroed."""
+        if value is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = value
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        pk.reset_launches()
+        try:
+            yield
+        finally:
+            os.environ.pop(env, None)
+
+    def read(path):
+        with open(path, "rb") as f:
+            data = f.read()
+        check(len(data) > 0, f"{path} is empty")
+        return data
+
+    def first_sets(path, n, **kw):
+        """The first n scan sets of open_source(path), the source closed
+        after them."""
+        src = port.open_source(path, **kw)
+        try:
+            for k, ls in enumerate(src):
+                if k == n:
+                    return
+                yield ls
+        finally:
+            src.close()
+
+    def pngs(d):
+        names = sorted(f for f in os.listdir(d) if f.endswith(".png"))
+        for n in names:
+            check(read(os.path.join(d, n))[:8] == b"\x89PNG\r\n\x1a\n",
+                  f"{n} is not a PNG")
+        return {n: read(os.path.join(d, n)) for n in names}
+
+    try:
+        # the capture with its metadata json beside it, as a user's is
+        info = copy.deepcopy(main_info)
+        info.config.udp_profile_lidar = info.format.udp_profile_lidar
+        info.config.udp_port_lidar = 7502
+        pcap = os.path.join(work, "main.pcap")
+        os.symlink(main_path, pcap)
+        with open(os.path.join(work, "main.json"), "w") as f:
+            f.write(info.to_json_string())
+        osf = os.path.join(work, "main.osf")
+        save_scans(osf, [info], list(first_sets(pcap, VIZ_FRAMES)))
+        synced(torch, lambda: None, [])   # the process's first window
+
+        # 1. SimpleViz snapshots, three routes
+        snaps, figures = {}, {}
+        for name, value, run in (
+                ("engine (cli)", None, lambda d: CliRunner().invoke(cli, [
+                    "source", pcap, "slice", f":{VIZ_FRAMES}", "viz",
+                    "--out", os.path.join(d, "s.png"), "--every", "1"])),
+                ("batcher", "0", lambda d: SimpleViz(
+                    [info], snapshot_path=os.path.join(d, "s.png"),
+                    snapshot_every=1).run(first_sets(pcap, VIZ_FRAMES))),
+                ("OSF projector", None, lambda d: SimpleViz(
+                    [info], snapshot_path=os.path.join(d, "s.png"),
+                    snapshot_every=1).run(port.open_source(osf)))):
+            d = os.path.join(work, name.split()[0])
+            os.makedirs(d)
+            with route(value), viz_consume(torch, SimpleViz) as vc:
+                t0 = time.perf_counter()
+                res = run(d)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                ran = dict(de.stats)
+                made = dict(pk.launches)
+            if name.startswith("engine"):
+                check(res.exit_code == 0, f"source viz exited "
+                      f"{res.exit_code}: {res.output[-2000:]}"
+                      f"{res.exception!r}")
+            snaps[name] = pngs(d)
+            check(len(snaps[name]) == VIZ_FRAMES == len(vc.seconds),
+                  f"viz over the {name}: {len(snaps[name])} snapshots, "
+                  f"{len(vc.seconds)} consumed")
+            # save_scans records each set as a collation: the replay
+            # projects one window a set
+            want_windows = VIZ_FRAMES
+            expect = {"engine (cli)": (ran["scans"] >= VIZ_FRAMES
+                                       and sum(made.values()) == 0),
+                      "batcher": (ran["scans"] == 0 and ran["batches"] == 0
+                                  and sum(made.values()) == 0),
+                      "OSF projector": (ran["osf_batches"] == want_windows
+                                        and made["planar"] == want_windows
+                                        and sum(made.values())
+                                        == want_windows)}[name]
+            check(expect, f"viz over the {name}: engine/projector "
+                  f"{ran}, launches {made}")
+            launches += made["planar"]
+            figures[name] = (secs, vc.seconds, vc.syncs, made["planar"])
+        ref = snaps["batcher"]
+        for name, got in snaps.items():
+            differ = [n for n in ref if got.get(n) != ref[n]]
+            check(not differ and sorted(got) == sorted(ref),
+                  f"viz over the {name}: {differ} differ from the batcher's")
+        for name, (secs, each, syncs, made) in figures.items():
+            print(f"viz snapshots over the {name}: {VIZ_FRAMES} of "
+                  f"{info.h}x{info.w} dual at 1024x768, byte-equal to the "
+                  f"batcher's; {np.median(each) * 1e3:.1f} ms a snapshot "
+                  f"(min {min(each) * 1e3:.1f}, max {max(each) * 1e3:.1f}; "
+                  f"update + PNG, software), syncs a snapshot "
+                  f"{[len(x) for x in syncs]}, planar_project<planar> "
+                  f"{made}; {secs:.2f} s in all [{CARD}]")
+
+        # the same over OpenGL, where the host has a surfaceless EGL
+        try:
+            vgl.GLContext(4, 4).close()
+            why = None
+        except Exception as e:   # any failure: the reason is printed
+            why = f"{type(e).__name__}: {e}"
+        if why is None:
+            gl = {}
+            for name, value in (("engine", None), ("batcher", "0")):
+                d = os.path.join(work, "gl_" + name)
+                os.makedirs(d)
+                with route(value), viz_consume(torch, SimpleViz) as vc:
+                    sv = SimpleViz([info], snapshot_path=os.path.join(
+                        d, "s.png"), snapshot_every=1, backend="gl")
+                    try:
+                        sv.run(first_sets(pcap, VIZ_FRAMES))
+                    finally:
+                        if sv.scan_viz.viz._gl_renderer is not None:
+                            sv.scan_viz.viz._gl_renderer.close()
+                gl[name] = (pngs(d), vc.seconds)
+            check(gl["engine"][0] == gl["batcher"][0]
+                  and len(gl["engine"][0]) == VIZ_FRAMES,
+                  "GL snapshots over the engine differ from the batcher's")
+            print(f"viz renderer: software and OpenGL (surfaceless EGL); GL "
+                  f"{np.median(gl['engine'][1]) * 1e3:.1f} ms a snapshot "
+                  f"over the engine, byte-equal to the batcher's [{CARD}]")
+        else:
+            print(f"viz renderer: software; OpenGL not run: gl_available() "
+                  f"is False here ({why})")
+
+        # 2. pose_optimize --viz-snapshot over SLAM scans with device poses
+        scans, gt, yinfo = slam["run"][:VIZ_PO_SCANS], slam["truth"], \
+            slam["info"]
+        po_src = os.path.join(work, "slam.osf")
+        save_scans(po_src, [yinfo], [port.LidarScanSet([s]) for s in scans])
+        last = scans[-1]
+        mid = int(np.flatnonzero(last.status & 1)[
+            len(np.flatnonzero(last.status & 1)) // 2])
+        cfg = json.dumps({"loss_function": "HuberLoss", "constraints": [
+            {"type": "ABSOLUTE_POSE", "timestamp": int(last.timestamp[mid]),
+             "pose": [float(v) for v in gt[len(scans) - 1].ravel()],
+             "rotation_weight": 100.0, "translation_weight": 100.0}]})
+        views = {}
+        for name, value in (("projector", None), ("batcher", "0")):
+            d = os.path.join(work, "po_" + name)
+            os.makedirs(d)
+            with route(value):
+                t0 = time.perf_counter()
+                for snap in ("po.png", "po.html"):
+                    n = po.optimize_osf_trajectory(
+                        po_src, os.path.join(d, "o.osf"), cfg,
+                        viz_snapshot=os.path.join(d, snap))
+                    check(n == len(scans), f"pose_optimize wrote {n} scans")
+                secs = time.perf_counter() - t0
+                made = pk.launches["planar"]
+            check((made > 0) == (value is None),
+                  f"pose_optimize over the {name}: {made} launches")
+            launches += made
+            views[name] = ({f: read(os.path.join(d, f)) for f in (
+                "po_orbit.png", "po_top.png", "po.html")}, secs, made)
+        check(views["projector"][0] == views["batcher"][0],
+              "pose_optimize --viz-snapshot: the views differ between the "
+              "projector and the batcher")
+        print(f"viz pose_optimize --viz-snapshot ({len(scans)} SLAM scans, "
+              f"PNG pair and .html, two solves a route): byte-equal with "
+              f"the projector on the card and off; {views['projector'][1]:.2f}"
+              f" s / {views['batcher'][1]:.2f} s, planar_project<planar> "
+              f"{views['projector'][2]} [{CARD}]")
+
+        # 3. ply_to_png and model_viz on a PLY of yard scans
+        plys = {}
+        for name, value in (("engine", None), ("batcher", "0")):
+            d = os.path.join(work, "ply_" + name)
+            os.makedirs(d)
+            with route(value):
+                ysets = list(first_sets(slam["path"], VIZ_PLY_SCANS,
+                                        sensor_info=[yinfo]))
+                check((de.stats["scans"] > 0) == (value is None),
+                      f"yard read over the {name}: {de.stats}")
+            save_scans(os.path.join(d, "y.ply"), [yinfo], ysets)
+            files = sorted(f for f in os.listdir(d) if f.endswith(".ply"))
+            check(len(files) >= 1, f"save_scans wrote {files}")
+            t0 = time.perf_counter()
+            for f in files:
+                ply_to_png(os.path.join(d, f), os.path.join(d, f + ".png"))
+            top_s = time.perf_counter() - t0
+            for out in ("m.png", "m.html"):
+                res = CliRunner().invoke(cli, [
+                    "source", os.path.join(d, files[0]), "model_viz",
+                    "--axes", "-o", os.path.join(d, out)])
+                check(res.exit_code == 0, f"model_viz exited "
+                      f"{res.exit_code}: {res.output[-1000:]}")
+            plys[name] = ({f: read(os.path.join(d, f))
+                           for f in sorted(os.listdir(d))}, top_s)
+        check(plys["engine"][0] == plys["batcher"][0],
+              "PLY, ply_to_png or model_viz output differs between the "
+              "engine's yard scans and the batcher's")
+        print(f"viz ply_to_png and model_viz: {len(plys['engine'][0])} files "
+              f"({', '.join(plys['engine'][0])}) byte-equal over the engine "
+              f"and the batcher; ply_to_png {plys['engine'][1] * 1e3:.1f} ms "
+              f"for {VIZ_PLY_SCANS} scans [{CARD}]")
+
+        # 4. the examples on the card's sources against the batcher's
+        outs = {}
+        for name, value in (("card", None), ("batcher", "0")):
+            d = os.path.join(work, "ex_" + name)
+            os.makedirs(d)
+            buf = _io.StringIO()
+            with route(value), contextlib.redirect_stdout(buf):
+                t0 = time.perf_counter()
+                pts = ex_pcap.pcap_3d_one_scan(pcap, 1)
+                ex_pcap.pcap_to_ply(pcap, 1, ply_dir=d)
+                ex_pcap.pcap_to_csv(pcap, 1, csv_dir=d)
+                ex_cm.colormap_strip(pcap, os.path.join(d, "cm.png"))
+                ex_zone.zone_states_example(pcap, n_scans=2)
+                ex_osf.osf_read_scans(osf)
+                osf_pts = ex_pcap.pcap_3d_one_scan(osf, 1)
+                secs = time.perf_counter() - t0
+                ran, made = dict(de.stats), pk.launches["planar"]
+            check((ran["scans"] > 0 and made > 0) == (value is None),
+                  f"the examples over the {name}: engine/projector {ran}, "
+                  f"launches {made}")
+            launches += made
+            outs[name] = (pts, osf_pts, buf.getvalue(),
+                          {f: read(os.path.join(d, f))
+                           for f in sorted(os.listdir(d))}, secs, made)
+        card, host = outs["card"], outs["batcher"]
+        check(np.array_equal(card[0], host[0]) and card[0].shape[0] > 1000,
+              "pcap_3d_one_scan over the engine differs from the batcher's")
+        check(card[2] == host[2] and "zone 2" in card[2],
+              "the examples printed other text over the engine")
+        check(card[3] == host[3] and len(card[3]) == 3,
+              f"example files differ: {sorted(card[3])}")
+        check(card[1].shape == host[1].shape, "pcap_3d_one_scan over the "
+              "OSF projector: another point count than over the batcher")
+        worst = ulp_check(card[1], host[1])
+        check(worst <= 1.0,
+              f"pcap_3d_one_scan over the OSF projector: {worst} f32 ulp "
+              f"from the f64 host LUT")
+        scene = ex_viz.viz_scene(os.path.join(work, "scene.png"))
+        clicks = ex_events.viz_image_events(os.path.join(work, "ev.png"))
+        check(read(scene)[:4] == b"\x89PNG" and clicks
+              and clicks[0][2], "the viz examples failed")
+        print(f"viz examples (pcap_3d_one_scan, pcap_to_ply, pcap_to_csv, "
+              f"colormap_strip, zone_states_example, osf_read_scans) over "
+              f"the card's sources: files and text byte-equal to the "
+              f"batcher's, OSF XYZ within {worst:.2f} f32 ulp of the f64 "
+              f"host LUT; {card[4]:.2f} s ({host[4]:.2f} s over the "
+              f"batcher), planar_project<planar> {card[5]}; viz_scene and "
+              f"viz_image_events written [{CARD}]")
+    finally:
+        shutil.rmtree(work)
+    return launches
 
 SLAM_FRAMES = 30
 YARD_SPEED = 1.0                   # m a frame: 10 m/s at 10 Hz

@@ -10,8 +10,8 @@ The device stages run on the GPU: a pcap or OSF source decodes or projects
 on CUDA, `slam`/`localize --backend device` register with DeviceICP (the
 icp_nn kernel), and `util benchmark` times the planar projection kernel
 (cli/util.py). The viewer commands (`source viz`, `source model_viz`,
-`pose_optimize --viz-snapshot`) need ouster_sdk_tpu_torch.viz, which is not
-ported yet: they exit with an error before any work.
+`pose_optimize --viz-snapshot`) render on the host (ouster_sdk_tpu_torch.viz)
+from the scans the device stages give.
 """
 
 from __future__ import annotations
@@ -27,11 +27,6 @@ import numpy as np
 from .. import __version__
 from ..core.constants import ChanField
 from ..io.sources import LidarScanSet, open_source
-
-#: what the viewer-bound commands say until ouster_sdk_tpu_torch.viz exists
-VIEWER_NOT_PORTED = ("{} needs the viewer (ouster_sdk_tpu_torch.viz), "
-                     "which is not ported to the PyTorch package yet")
-
 
 class SourcePipeline:
     """Holds the scan-set iterator being transformed by chained commands."""
@@ -744,8 +739,7 @@ def source_slam(ctx, voxel_size, min_range, max_range, deskew_method,
 @click.option("--viz-snapshot", default=None,
               help="write before/after trajectory PNG snapshots (headless "
               "equivalent of the pose-optimizer viewer, ref: "
-              "plugins/source_po_viz.py); needs the viewer, not ported "
-              "yet")
+              "plugins/source_po_viz.py)")
 @click.pass_context
 def source_pose_optimize(ctx, output_osf, config_path, key_frame_distance,
                          viz_snapshot):
@@ -756,9 +750,6 @@ def source_pose_optimize(ctx, output_osf, config_path, key_frame_distance,
     url = ctx.obj.url
     if not url.lower().endswith(".osf"):
         raise click.ClickException("pose_optimize requires an OSF source")
-    if viz_snapshot:
-        raise click.ClickException(VIEWER_NOT_PORTED.format(
-            "pose_optimize --viz-snapshot"))
     cfg_text = None
     if config_path:
         with open(config_path) as f:
@@ -872,9 +863,106 @@ def source_viz(ctx, out, every, cloud_mode, palette, aoi, accum_num,
     """Visualize scans (offscreen renderer; ref: plugins/source.py viz,
     sdk/viz/model.py view modes / palettes / AOI). With --html, writes a
     single-file interactive WebGL orbit viewer of the (pose-dewarped)
-    accumulated cloud — open it in any browser. Needs the viewer, which
-    is not ported yet: exits with an error before opening the source."""
-    raise click.ClickException(VIEWER_NOT_PORTED.format("source viz"))
+    accumulated cloud — open it in any browser."""
+    from ..viz.core import SimpleViz
+
+    if html_out:
+        from ..ops.xyzlut import make_xyz_lut
+
+        pipeline = ctx.obj
+
+        def html_consumer(it):
+            luts = [make_xyz_lut(i, use_extrinsics=True)
+                    for i in pipeline.infos]
+            pts_acc, key_acc = [], []
+            for ls_set in it:
+                for k, s in enumerate(ls_set):
+                    if s is None:
+                        continue
+                    rng = s.field(ChanField.RANGE)
+                    xyz = luts[k](rng)
+                    valid = rng > 0
+                    from ..utils.pose_util import dewarp as _dewarp
+
+                    world = _dewarp(xyz, s.pose)
+                    pts_acc.append(world[valid].astype(np.float32))
+                    if s.has_field(html_field.upper()):
+                        key_acc.append(
+                            s.field(html_field.upper())[valid])
+            from ..viz.html import export_html
+
+            pts = np.concatenate(pts_acc) if pts_acc else np.zeros((0, 3))
+            key = (np.concatenate(key_acc)
+                   if key_acc and len(key_acc) == len(pts_acc) else None)
+            export_html(html_out, pts, key,
+                        palette=palette or "viridis")
+            click.echo(f"wrote interactive viewer {html_out} "
+                       f"({len(pts)} points)")
+
+        pipeline.consumers.append(html_consumer)
+
+    def consumer(it):
+        if window:
+            from ..viz.core import LidarScanViz
+            from ..viz.gl import GLUnavailable, run_window
+
+            lsv_w = LidarScanViz(ctx.obj.infos)
+
+            def step():
+                for ls_set in it:
+                    lsv_w.update(list(ls_set))
+                    yield
+
+            try:
+                run_window(lsv_w.viz, scan_iter=step())
+            except GLUnavailable as e:
+                raise click.ClickException(str(e))
+            return
+        viz = SimpleViz(ctx.obj.infos, snapshot_path=out,
+                        snapshot_every=every, accum_num=accum_num,
+                        accum_every=accum_every,
+                        accum_every_m=accum_every_m,
+                        map_enabled=map_enabled, map_ratio=map_ratio,
+                        rate=0.0 if rate == "max" else float(rate),
+                        pause_at=pause_at, auto_resume=True,
+                        backend=backend)
+        lsv = viz.scan_viz
+        if cloud_mode:
+            names = [m.name for m in lsv.cloud_modes[0]]
+            matches = [i for i, n in enumerate(names)
+                       if cloud_mode.upper() in n.upper()]
+            if not matches:
+                raise click.ClickException(
+                    f"unknown cloud mode {cloud_mode!r}; "
+                    f"available: {names}")
+            lsv._cloud_mode_ind = matches[0]
+        if palette:
+            from ..viz.core import CLOUD_PALETTE_ORDER
+
+            lsv._palette_ind = CLOUD_PALETTE_ORDER.index(palette)
+        sel = None
+        if aoi:
+            r0, c0, r1, c1 = (int(x) for x in aoi.split(","))
+            sel = lsv.select_aoi((r0, c0), (r1, c1))
+        if sel is not None:
+            n = 0
+            for ls_set in it:
+                scans = list(ls_set)
+                lsv.update(scans)
+                for s in ls_set.valid():
+                    st = sel.stats(s)
+                    click.echo(
+                        f"aoi scan {n}: {st['num_points']} pts, range "
+                        f"{st['min_range_m']:.2f}-{st['max_range_m']:.2f} m"
+                        f" (mean {st['mean_range_m']:.2f})")
+                if out and n % max(every, 1) == 0:
+                    stem, ext = os.path.splitext(out)
+                    lsv.viz.save_png(f"{stem}_{n:04d}{ext or '.png'}")
+                n += 1
+        else:
+            viz.run(it, live=ctx.obj.source.is_live)
+
+    ctx.obj.consumers.append(consumer)
 
 
 @cli.group()

@@ -11,7 +11,7 @@ import time
 import click
 import numpy as np
 
-from .core import VIEWER_NOT_PORTED, cli, source
+from .core import cli, source
 
 
 @source.command("mask")
@@ -266,10 +266,55 @@ def source_emulate_zones(ctx, config, live):
 @click.pass_context
 def model_viz(ctx, axes, output):
     """View a pointcloud (.ply/.pcd/.las) or .stl file — offscreen
-    snapshot (ref: plugins/source.py:1039 model_viz). Needs the viewer,
-    which is not ported yet: exits with an error before reading the
-    file."""
-    raise click.ClickException(VIEWER_NOT_PORTED.format("model_viz"))
+    snapshot (ref: plugins/source.py:1039 model_viz)."""
+    from ..viz.core import Cloud, PointViz
+    from ..viz.drawables import Lines, Mesh, render_with_drawables
+
+    url = ctx.obj.url
+    ext = url.rsplit(".", 1)[-1].lower()
+    if output.lower().endswith(".html") and ext in ("ply", "pcd", "las",
+                                                    "csv"):
+        from ..io.cloud_io import read_pointcloud
+        from ..viz.html import export_html
+
+        pts, attrs = read_pointcloud(url)
+        key = next((np.asarray(attrs[n], np.float32) for n in
+                    ("reflectivity", "intensity", "signal") if n in attrs),
+                   None)
+        export_html(output, np.asarray(pts, np.float32), key)
+        click.echo(f"wrote {output}")
+        ctx.obj.standalone = True
+        return
+    viz = PointViz("Model Viewer")
+    drawables = []
+    if ext == "stl":
+        from ..zone.zone import load_stl
+
+        drawables.append(Mesh(load_stl(url)))
+    elif ext in ("ply", "pcd", "las", "csv"):
+        from ..io.cloud_io import read_pointcloud
+
+        pts, attrs = read_pointcloud(url)
+        key = None
+        for name in ("reflectivity", "intensity", "signal"):
+            if name in attrs:
+                key = np.asarray(attrs[name], np.float32)
+                break
+        viz.add(Cloud(np.asarray(pts, np.float32), key=key, point_size=3))
+    else:
+        raise click.ClickException(
+            "unsupported file type: only .stl/.ply/.pcd/.las/.csv")
+    if axes:
+        segs = np.array([[[0, 0, 0], [1, 0, 0]], [[0, 0, 0], [0, 1, 0]],
+                         [[0, 0, 0], [0, 0, 1]]], np.float32)
+        drawables.append(Lines(segs, (255, 64, 64)))
+    if drawables:
+        frame = render_with_drawables(viz, drawables)
+        viz.save_png(output, frame)
+    else:
+        viz.save_png(output)
+    click.echo(f"wrote {output}")
+    ctx.obj.standalone = True
 
 
 @source.command("model_save")

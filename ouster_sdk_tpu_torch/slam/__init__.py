@@ -34,6 +34,7 @@ from .pose_optimizer import (  # noqa: F401
     SolverConfig,
     save_trajectory,
 )
+from .ply_to_png import ply_to_png  # noqa: F401
 
 #: Reference binding names (ref: mapping.pyi Constraint base /
 #: PoseOptimizerNode).

@@ -402,17 +402,11 @@ def optimize_osf_trajectory(src_osf: str, out_osf: str,
     `device` is where the OSF reader's projector and the per-scan
     correction's interpolation run: CUDA when none is named (raises
     without a GPU). The solve is numpy and scipy on the host.
-    `viz_snapshot` needs the viewer, which this package does not have
-    yet: it raises NotImplementedError before any file is read or
-    written."""
+    `viz_snapshot` writes the before/after trajectory views (a PNG pair,
+    or one self-contained .html) through the host viewer (viz/po_viz)."""
     from ..core.constants import ChanField
     from ..io.osf import OsfScanSource, Writer
     from ..ops.xyzlut import make_xyz_lut
-
-    if viz_snapshot:
-        raise NotImplementedError(
-            "viz_snapshot needs the pose-optimizer viewer, which is not "
-            "ported to ouster_sdk_tpu_torch yet")
 
     cfg = SolverConfig()
     traj_rw = traj_tw = 10.0
@@ -518,7 +512,19 @@ def optimize_osf_trajectory(src_osf: str, out_osf: str,
         else:
             raise ValueError(f"unknown constraint type {ctype!r}")
 
+    nodes_before = [Node(t, p.copy()) for t, p in zip(node_ts, node_poses)]
     opt.solve()
+    if viz_snapshot:
+        if viz_snapshot.lower().endswith(".html"):
+            from ..viz.po_viz import export_po_html
+
+            export_po_html(nodes_before, opt.nodes, opt.constraints,
+                           viz_snapshot)
+        else:
+            from ..viz.po_viz import save_po_viz_snapshots
+
+            save_po_viz_snapshots(nodes_before, opt.nodes,
+                                  opt.constraints, viz_snapshot)
 
     # per-scan correction T_fix = T_new @ inv(T_old), SE(3)-interpolated
     # between the surrounding knots at the scan's mid timestamp

@@ -15,6 +15,7 @@ import os
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
@@ -381,3 +382,81 @@ def assert_scans_equal(a, b, tag: str = "") -> None:
     for attr in ("frame_status", "shutdown_countdown",
                  "shot_limiting_countdown"):
         assert getattr(a, attr) == getattr(b, attr), f"{tag}:{attr}"
+
+
+# -- the command line and the yard, shared by the CLI, viewer and examples
+# tests ---------------------------------------------------------------------
+
+@pytest.fixture(autouse=True)
+def on_cpu(monkeypatch):
+    """Every binding of the port's default device, pointed at the CPU, and
+    the source policy variable unset (autouse in a module that imports
+    this fixture by name)."""
+    from ouster_sdk_tpu_torch.ops import fused
+
+    real = fused.default_device
+    for name, mod in list(sys.modules.items()):
+        if name.startswith("ouster_sdk_tpu_torch") and \
+                getattr(mod, "default_device", None) is real:
+            monkeypatch.setattr(mod, "default_device",
+                                lambda: torch.device("cpu"))
+    monkeypatch.delenv("OUSTER_SDK_TPU_DEVICE_DECODE", raising=False)
+
+
+def yard_pcap(d, frames: int):
+    """chip_smoke's yard (16x256 dual, `frames` frames) written as
+    d/yard.pcap with its metadata json beside it; returns (pcap path,
+    ground truth)."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.core.types import UDPProfileLidar
+
+    info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
+    info.config.udp_profile_lidar = UDPProfileLidar(cs.MAIN_PROFILE)
+    info.config.udp_port_lidar = 7502
+    pcap = os.path.join(str(d), "yard.pcap")
+    truth = cs.yard_capture(pt, pcap, info, frames)
+    with open(os.path.join(str(d), "yard.json"), "w") as f:
+        f.write(info.to_json_string())
+    return pcap, truth
+
+
+def invoke(cli, args, cwd, monkeypatch):
+    """click's runner over `cli` in the directory `cwd`."""
+    from click.testing import CliRunner
+
+    monkeypatch.chdir(cwd)
+    return CliRunner().invoke(cli, args)
+
+
+def both(tmp_path, monkeypatch, args, ok=True):
+    """Run `args` through the port's cli in tmp_path/port and the JAX
+    package's in tmp_path/jax; returns (port result, JAX result)."""
+    from ouster_sdk_tpu.cli import cli as jcli
+    from ouster_sdk_tpu_torch.cli import cli as pcli
+
+    out = []
+    for tag, cli in (("port", pcli), ("jax", jcli)):
+        d = tmp_path / tag
+        d.mkdir(exist_ok=True)
+        r = invoke(cli, args, d, monkeypatch)
+        if ok:
+            assert r.exit_code == 0, (tag, r.output, r.exception)
+        out.append(r)
+    return out
+
+
+def same_file(tmp_path, name):
+    """tmp_path/port/name and tmp_path/jax/name: non-empty and equal."""
+    a = (tmp_path / "port" / name).read_bytes()
+    assert a == (tmp_path / "jax" / name).read_bytes(), name
+    assert a
+
+
+def same_files(tmp_path):
+    """Every file of tmp_path/port and tmp_path/jax: the same names, each
+    non-empty and equal; returns the names."""
+    names = sorted(os.listdir(tmp_path / "port"))
+    assert names and names == sorted(os.listdir(tmp_path / "jax"))
+    for n in names:
+        same_file(tmp_path, n)
+    return names

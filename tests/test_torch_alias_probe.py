@@ -9,10 +9,16 @@ node id is one case here, which passes only if it passed there.
 
 The list holds the cases of the JAX package's tests for the host layer's
 modules (derived views, filters, scan-source semantics, PNG series, point
-clouds, bags, utils), the pose optimizer and the CLI's plugin runner that
-neither import jax nor read the reference SDK's fixture files (cases
-needing those, the viewer or the slow marker are left out). It grows with
-the modules each later slice ports."""
+clouds, bags, utils), the pose optimizer, the CLI's plugin runner, the
+viewer (its OpenGL cases run on the host's surfaceless EGL) and the
+examples package that neither import jax nor read the reference SDK's
+fixture files (cases needing those or the slow marker are left out).
+Three viewer cases are left out because they read private names of the
+package under test, which a port need not share: test_gl_viewer.py's
+test_pointviz_gl_backend_switch (PointViz._gl_renderer) and
+test_gl_buffer_cache_reuse (GLRenderer._cloud_cache), and
+test_viz_modes.py's test_seekable_invariants (viz.core._Seekable; the
+port's copy is held to the JAX package's in tests/test_torch_viz.py)."""
 
 import json
 import os
@@ -41,6 +47,16 @@ CASES = [
     "tests/test_cli_plugins.py::test_run_internal_error_traceback",
     "tests/test_cli_plugins.py::test_source_args_exception_api",
     "tests/test_cli_plugins.py::test_version_lists_plugins",
+    "tests/test_cli_viz.py::test_cloud_io_roundtrips",
+    "tests/test_cli_viz.py::test_derived_transforms",
+    "tests/test_examples_package.py::test_open3d_example_import_gated",
+    "tests/test_gl_viewer.py::test_context_clear_and_readback",
+    "tests/test_gl_viewer.py::test_gl_lines_drawn",
+    "tests/test_gl_viewer.py::test_gl_lines_with_cloud_present",
+    "tests/test_gl_viewer.py::test_point_projection_matches_software",
+    "tests/test_gl_viewer.py::test_range_lut_path_equals_direct_xyz",
+    "tests/test_gl_viewer.py::test_range_zero_discard",
+    "tests/test_gl_viewer.py::test_window_gated_headless",
     "tests/test_pose_optimizer.py::test_absolute_pose_anchors_pull_trajectory",
     "tests/test_pose_optimizer.py::test_loss_function_enum_mapping",
     "tests/test_pose_optimizer.py::test_point_constraints",
@@ -78,6 +94,9 @@ CASES = [
     "tests/test_utils.py::test_kitti_io",
     "tests/test_utils.py::test_pose_roundtrip_and_transform",
     "tests/test_utils.py::test_trajectory_eval",
+    "tests/test_viz_modes.py::test_imu_subplot_renders",
+    "tests/test_viz_modes.py::test_po_viz_snapshots",
+    "tests/test_viz_modes.py::test_simple_mode_names_single_and_dual",
 ]
 
 # Runs in the subprocess: argv[1] is the JSON list of node ids; prints one

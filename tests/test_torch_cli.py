@@ -29,68 +29,23 @@ import numpy as np
 import pytest
 from click.testing import CliRunner
 
-import _torch_helpers  # noqa: F401  (one torch thread)
+from _torch_helpers import both, invoke, on_cpu, same_file, \
+    yard_pcap  # noqa: F401  (on_cpu: autouse)
 import chip_smoke as cs
 import ouster_sdk_tpu as jx
 import ouster_sdk_tpu.io.save as jsave
 import ouster_sdk_tpu_torch as pt
 from ouster_sdk_tpu.cli import cli as jcli
 from ouster_sdk_tpu_torch.cli import cli as pcli
-from ouster_sdk_tpu_torch.core.types import UDPProfileLidar
 from ouster_sdk_tpu_torch.ops import fused
 
 FRAMES = 6
 
 
-@pytest.fixture(autouse=True)
-def on_cpu(monkeypatch):
-    """Every binding of the port's default device, pointed at the CPU."""
-    real = fused.default_device
-    for name, mod in list(sys.modules.items()):
-        if name.startswith("ouster_sdk_tpu_torch") and \
-                getattr(mod, "default_device", None) is real:
-            monkeypatch.setattr(mod, "default_device",
-                                lambda: __import__("torch").device("cpu"))
-    monkeypatch.delenv("OUSTER_SDK_TPU_DEVICE_DECODE", raising=False)
-
-
 @pytest.fixture(scope="module")
 def yard(tmp_path_factory):
     """The yard pcap, its metadata json and the ground truth."""
-    d = tmp_path_factory.mktemp("yard")
-    info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
-    info.config.udp_profile_lidar = UDPProfileLidar(cs.MAIN_PROFILE)
-    info.config.udp_port_lidar = 7502
-    pcap = str(d / "yard.pcap")
-    truth = cs.yard_capture(pt, pcap, info, FRAMES)
-    with open(d / "yard.json", "w") as f:
-        f.write(info.to_json_string())
-    return pcap, truth
-
-
-def _invoke(cli, args, cwd, monkeypatch):
-    monkeypatch.chdir(cwd)
-    return CliRunner().invoke(cli, args)
-
-
-def both(tmp_path, monkeypatch, args, ok=True):
-    """Run `args` through the port's cli in tmp_path/port and the JAX
-    package's in tmp_path/jax; returns (port result, JAX result)."""
-    out = []
-    for tag, cli in (("port", pcli), ("jax", jcli)):
-        d = tmp_path / tag
-        d.mkdir(exist_ok=True)
-        r = _invoke(cli, args, d, monkeypatch)
-        if ok:
-            assert r.exit_code == 0, (tag, r.output, r.exception)
-        out.append(r)
-    return out
-
-
-def same_file(tmp_path, name):
-    a = (tmp_path / "port" / name).read_bytes()
-    assert a == (tmp_path / "jax" / name).read_bytes(), name
-    assert a
+    return yard_pcap(tmp_path_factory.mktemp("yard"), FRAMES)
 
 
 @pytest.mark.parametrize("args", [
@@ -122,7 +77,7 @@ def test_reduce_save_writes_reduced_metadata(yard, tmp_path, monkeypatch,
     command keeps the 16-beam metadata: its pcap writer raises on the
     8-row scans (ROADMAP section 3)."""
     (tmp_path / "port").mkdir()
-    r = _invoke(pcli, ["source", yard[0], "reduce", "--beams", "8", "save",
+    r = invoke(pcli, ["source", yard[0], "reduce", "--beams", "8", "save",
                        f"r.{ext}"], tmp_path / "port", monkeypatch)
     assert r.exit_code == 0, (r.output, r.exception)
     src = jx.open_source(yard[0]).reduce([8])
@@ -131,11 +86,11 @@ def test_reduce_save_writes_reduced_metadata(yard, tmp_path, monkeypatch,
                      src)
     same_file(tmp_path, f"r.{ext}")
     if ext == "pcap":
-        r = _invoke(jcli, ["source", yard[0], "reduce", "--beams", "8",
+        r = invoke(jcli, ["source", yard[0], "reduce", "--beams", "8",
                            "save", "--overwrite", "x.pcap"],
                     tmp_path / "jax", monkeypatch)
         assert isinstance(r.exception, ValueError)
-    r = _invoke(pcli, ["source", yard[0], "reduce", "--beams", "5", "stats"],
+    r = invoke(pcli, ["source", yard[0], "reduce", "--beams", "5", "stats"],
                 tmp_path / "port", monkeypatch)
     assert r.exit_code != 0 and "must evenly divide" in str(r.exception)
 
@@ -145,14 +100,18 @@ def test_slam_host_is_bit_equal_and_device_within_1e3(yard, tmp_path,
     p, j = both(tmp_path, monkeypatch, [
         "source", yard[0], "slam", "--backend", "host", "-v", "1.0",
         "--trajectory", "t.kitti", "-d", "map.ply", "save", "s.osf"])
-    assert p.output == j.output
+    # --trajectory, -d and save are three consumers, each on a thread of
+    # its own in both packages: their lines come in no set order
+    lines = sorted(p.output.splitlines())
+    assert lines == sorted(j.output.splitlines())
+    assert [ln.split()[0] for ln in lines] == ["map", "wrote", "wrote"]
     for name in ("t.kitti", "s.osf", "map.ply"):
         same_file(tmp_path, name)
-    r = _invoke(pcli, ["source", yard[0], "slam", "--backend", "device",
+    r = invoke(pcli, ["source", yard[0], "slam", "--backend", "device",
                        "-v", "1.0", "--trajectory", "td.kitti"],
                 tmp_path / "port", monkeypatch)
     assert r.exit_code == 0, (r.output, r.exception)
-    r = _invoke(jcli, ["source", yard[0], "slam", "--backend", "tpu",
+    r = invoke(jcli, ["source", yard[0], "slam", "--backend", "tpu",
                        "-v", "1.0", "--trajectory", "td.kitti"],
                 tmp_path / "jax", monkeypatch)
     assert r.exit_code == 0, r.output
@@ -168,7 +127,7 @@ def test_slam_host_is_bit_equal_and_device_within_1e3(yard, tmp_path,
         out = []
         for cli, tag, be in ((pcli, "port", backend),
                              (jcli, "jax", jbackend)):
-            r = _invoke(cli, ["source", yard[0], "localize", "--map",
+            r = invoke(cli, ["source", yard[0], "localize", "--map",
                               "map.ply", "--voxel-size", "1.0",
                               "--backend", be, "--trajectory",
                               f"l_{be}.kitti"], tmp_path / tag, monkeypatch)
@@ -200,7 +159,7 @@ def test_normals_device_agrees_with_numpy(yard, tmp_path, monkeypatch,
     sets = {}
     for backend in ("numpy", "device"):
         capture.clear()
-        r = _invoke(pcli, ["source", yard[0], "normals", "--backend",
+        r = invoke(pcli, ["source", yard[0], "normals", "--backend",
                            backend, "_capture"], tmp_path, monkeypatch)
         assert r.exit_code == 0, (r.output, r.exception)
         sets[backend] = [ls[0] for ls in capture]
@@ -214,7 +173,7 @@ def test_normals_device_agrees_with_numpy(yard, tmp_path, monkeypatch,
     assert len(sets["device"]) == FRAMES and n_px > 1000
     assert flips <= 0.01 * n_px, (flips, n_px)
     # the numpy backend is the JAX package's bits
-    r = _invoke(jcli, ["source", yard[0], "normals", "stats"], tmp_path,
+    r = invoke(jcli, ["source", yard[0], "normals", "stats"], tmp_path,
                 monkeypatch)
     assert r.exit_code == 0
 
@@ -227,7 +186,7 @@ def test_normals_device_agrees_with_numpy(yard, tmp_path, monkeypatch,
 def test_tpu_and_jax_backends_are_refused(yard, tmp_path, monkeypatch,
                                           args):
     args = [a.format(pcap=yard[0]) for a in args]
-    r = _invoke(pcli, args, tmp_path, monkeypatch)
+    r = invoke(pcli, args, tmp_path, monkeypatch)
     assert r.exit_code == 2
     assert "Invalid value for '--backend'" in r.output
     assert "'device'" in r.output
@@ -239,12 +198,19 @@ def test_tpu_and_jax_backends_are_refused(yard, tmp_path, monkeypatch,
 ], ids=("viz", "viz-out", "model_viz", "pose_optimize-viz-snapshot"))
 def test_viewer_commands_exit_non_zero_before_any_work(tmp_path,
                                                        monkeypatch, args):
-    """The url does not exist: the command refuses before opening it."""
-    r = _invoke(pcli, ["source", "missing.osf", *args], tmp_path,
-                monkeypatch)
-    assert r.exit_code == 1, (r.output, r.exception)
-    assert "not ported" in r.output and "viewer" in r.output
-    assert not any(tmp_path.iterdir())
+    """The url does not exist: each viewer command exits non-zero before
+    it writes a file, with the JAX package's exit code, output and error
+    for the same arguments."""
+    p, j = both(tmp_path, monkeypatch, ["source", "missing.osf", *args],
+                ok=False)
+    assert p.exit_code == j.exit_code == 1, (p.output, p.exception)
+    assert p.output == j.output
+    assert type(p.exception).__name__ == type(j.exception).__name__
+    if not isinstance(p.exception, SystemExit):
+        assert str(p.exception) == str(j.exception)
+        assert "missing.osf" in str(p.exception)
+    for d in tmp_path.iterdir():
+        assert not any(d.iterdir()), d
 
 
 def test_pose_optimize_matches_the_jax_package(yard, tmp_path,
@@ -353,7 +319,7 @@ def test_benchmark_raises_where_a_device_stage_fails(yard, tmp_path,
                         (device_icp, "register_points_device")):
         with pytest.MonkeyPatch.context() as mp:
             mp.setattr(owner, name, fail)
-            r = _invoke(pcli, ["util", "benchmark", yard[0], "--frames",
+            r = invoke(pcli, ["util", "benchmark", yard[0], "--frames",
                                "2"], tmp_path, monkeypatch)
         assert r.exit_code == 1 and "skipped" not in r.output
         assert str(r.exception) == "the device stage failed"
@@ -399,7 +365,7 @@ def failing_commands():
 def test_a_failure_in_a_chained_pipeline_neither_hangs_nor_exits_0(
         yard, tmp_path, monkeypatch, failing_commands, args, msg):
     out = []
-    t = threading.Thread(target=lambda: out.append(_invoke(
+    t = threading.Thread(target=lambda: out.append(invoke(
         pcli, ["source", yard[0], *args], tmp_path, monkeypatch)))
     t.start()
     t.join(120)

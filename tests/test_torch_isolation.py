@@ -110,6 +110,48 @@ def test_runs_with_jax_unimportable():
     assert res.stdout.strip().endswith("ok")
 
 
+def test_viewer_and_examples_run_with_jax_unimportable(tmp_path):
+    """ouster_sdk_tpu_torch.viz, .examples (every module) and
+    .slam.ply_to_png with jax and the JAX package made unimportable: one
+    software snapshot of a scan and one top-down render of a point
+    cloud."""
+    code = textwrap.dedent(f"""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None
+        sys.modules["ouster_sdk_tpu"] = None
+        sys.path.insert(0, {ROOT!r})
+        import numpy as np
+        import ouster_sdk_tpu_torch as pt
+        import ouster_sdk_tpu_torch.examples as examples
+        import ouster_sdk_tpu_torch.viz as viz
+        from ouster_sdk_tpu_torch.core.types import LidarMode
+        from ouster_sdk_tpu_torch.io.cloud_io import write_pointcloud
+        from ouster_sdk_tpu_torch.slam.ply_to_png import ply_to_png
+        for m in pkgutil.iter_modules(examples.__path__):
+            importlib.import_module("ouster_sdk_tpu_torch.examples."
+                                    + m.name)
+        info = pt.default_sensor_info(LidarMode(512, 10))
+        scan = pt.LidarScan(info)
+        rng = np.random.default_rng(0)
+        scan.field("RANGE")[:] = rng.integers(500, 30000, (scan.h, scan.w))
+        scan.status[:] = 1
+        snap = viz.ls_show(scan, info, path={str(tmp_path / "s.png")!r})
+        ply = {str(tmp_path / "c.ply")!r}
+        write_pointcloud(ply, rng.normal(size=(2000, 3)).astype(np.float32))
+        top = ply_to_png(ply, {str(tmp_path / "c.png")!r})
+        for path in (snap, top):
+            with open(path, "rb") as f:
+                data = f.read()
+            assert data[:8] == b"\\x89PNG\\r\\n\\x1a\\n" and len(data) > 1000
+        assert not any(m == "jax" or m.startswith(("jax.", "ouster_sdk_tpu."))
+                       for m in sys.modules if sys.modules[m] is not None)
+        print("ok")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().endswith("ok")
+
 def test_wire_and_parallel_run_with_jax_unimportable(tmp_path):
     """ops.packed, ops.bp64, the wire stagings of io.frames and parallel/
     with jax and the JAX package made unimportable: a capture staged packed

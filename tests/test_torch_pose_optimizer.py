@@ -312,12 +312,19 @@ def test_optimize_osf_trajectory_differs_by_the_interpolation_alone(
 
 
 def test_optimize_osf_trajectory_refuses_a_viz_snapshot_first(tmp_path):
+    """With viz_snapshot set and the input missing, both packages raise
+    the same error before they write the OSF or a snapshot."""
     out = tmp_path / "out.osf"
-    with pytest.raises(NotImplementedError, match="viewer"):
-        tpo.optimize_osf_trajectory(str(tmp_path / "missing.osf"), str(out),
-                                    viz_snapshot=str(tmp_path / "po.png"),
-                                    device="cpu")
-    assert not out.exists() and not any(tmp_path.iterdir())
+    errors = []
+    for mod, kw in ((tpo, {"device": "cpu"}), (jpo, {})):
+        with pytest.raises(FileNotFoundError) as e:
+            mod.optimize_osf_trajectory(str(tmp_path / "missing.osf"),
+                                        str(out),
+                                        viz_snapshot=str(tmp_path / "po.png"),
+                                        **kw)
+        errors.append(str(e.value))
+        assert not out.exists() and not any(tmp_path.iterdir())
+    assert errors[0] == errors[1] and "missing.osf" in errors[0]
 
 
 def test_optimize_osf_trajectory_raises_on_an_unknown_constraint(tmp_path):
