@@ -142,7 +142,15 @@ on a PLY of yard scans read by the engine and by the batcher; and the
 examples package (pcap_3d_one_scan, pcap_to_ply, pcap_to_csv,
 colormap_strip, zone_states_example, osf_read_scans, viz_scene,
 viz_image_events) over the card's sources, held byte-equal to the
-batcher's, the OSF XYZ within 1 f32 ulp of the f64 host LUT.
+batcher's, the OSF XYZ within 1 f32 ulp of the f64 host LUT. Last, the
+scripts phase runs the 13 example scripts (ouster_sdk_tpu_torch.examples.
+scripts, the counterparts of examples/*.py) in this process as `python -m`
+runs them, over 4 frames of the main cell or 3 of the yard:
+device_pipeline's XYZ bit-equal to the plain version without and with
+poses; six scripts again over the numpy ScanBatcher with their text and
+files byte-equal; the live scripts against the port's emulator, each
+complete scan the frame served; gl_viewer where libEGL.so.1 loads. Each
+script's wall time and planar_project launches are printed.
 
 The main cell is an OS-2-128 in 2048x10 mode with the dual-return
 profile RNG19_RFL8_SIG16_NIR16_DUAL, 32 frames in kernel batches of 32;
@@ -1017,6 +1025,15 @@ def _run(torch, port, pk, dev, tmp) -> int:
           f"planar_project<planar>: {viz_launches} more launches (the OSF "
           f"projector under the viewer, pose_optimize and the examples); "
           f"{kernels[0]['launches']} in all")
+    t0 = time.perf_counter()
+    made = _run_scripts(torch, port, pk, dev, tmp, main_info=captures[
+        MAIN_PROFILE][0], slam=slam)
+    for case, n in made.items():
+        entry = kernels[pk.CASES.index(case)]
+        entry["launches"] += n
+        print(f"planar_project<{case}>: {n} more launches on the scripts "
+              f"path; {entry['launches']} in all")
+    print(f"scripts phase: {time.perf_counter() - t0:.1f} s")
     print("frames/s end to end, main cell, cold, native staging: "
           + ", ".join(f"{k} {v:.2f}" for k, v in FPS.items()) + f" [{CARD}]")
     print(json.dumps({"kernels": kernels}))
@@ -5015,6 +5032,312 @@ def _run_viz(torch, port, pk, dev, tmp, main_info, main_path, slam) -> int:
     finally:
         shutil.rmtree(work)
     return launches
+
+SCRIPT_FRAMES = 4         # frames of the main cell the scripts read
+SCRIPT_YARD_FRAMES = 3    # yard frames the two SLAM scripts register
+SCRIPT_TIMEOUT_S = 120    # a script still running after this fails the run
+SCRIPTS = "ouster_sdk_tpu_torch.examples.scripts"
+
+
+# what emulator_live_loop and live_sensor print of a complete scan: its
+# frame id, then valid_px(scan) or mean_range(scan)
+LIVE_LOOP_LINE = r"live scan \d+: frame_id=(\d+) valid_px=(\d+)\n"
+LIVE_SENSOR_LINE = r"frame_id=(\d+) complete=True mean_range=([\d.]+) m\n"
+
+
+def valid_px(scan) -> int:
+    return int((scan.field("RANGE") > 0).sum())
+
+
+def mean_range(scan) -> str:
+    rng = scan.field("RANGE")
+    valid = rng[rng > 0]
+    return f"{valid.mean() * 1e-3 if valid.size else 0:.2f}"
+
+
+def hold_served(text: str, sets, pattern: str, value) -> int:
+    """Every line of a live script's `text` that matches `pattern` holds
+    value(scan) of the scan of `sets` that a looping emulator
+    (looping_packets_factory: frame ids shifted by 16 a pass) served as
+    that frame id; returns how many lines matched."""
+    import re
+
+    ids = [s[0].frame_id for s in sets]
+    check(len(ids) <= 16, f"{len(ids)} sets: frame ids would repeat")
+    lines = re.findall(pattern, text)
+    for fid, got in lines:
+        k = [k for k, f in enumerate(ids)
+             if (int(fid) - f) % 16 == 0 and int(fid) >= f]
+        check(len(k) == 1 and got == str(value(sets[k[0]][0])),
+              f"frame {fid} printed {got}, served "
+              f"{[value(sets[j][0]) for j in k]}:\n{text}")
+    return len(lines)
+
+
+def run_script(torch, name: str, argv, cwd: str):
+    """One example script as `python -m <SCRIPTS>.<name> <argv>` runs it,
+    in this process: sys.argv set, the working directory `cwd`, stdout
+    captured. It runs on a thread of its own, so that a script that never
+    ends fails the run after SCRIPT_TIMEOUT_S instead of holding it.
+    Returns (printed text, seconds to its end with the device synced)."""
+    import contextlib
+    import io as _io
+    import runpy
+
+    buf, err = _io.StringIO(), []
+
+    def body():
+        try:
+            runpy.run_module(f"{SCRIPTS}.{name}", run_name="__main__")
+            torch.cuda.synchronize()
+        except BaseException as e:   # re-raised on the calling thread
+            err.append(e)
+
+    argv0, cwd0 = sys.argv, os.getcwd()
+    sys.argv = [f"{SCRIPTS}.{name}", *argv]
+    os.chdir(cwd)
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            worker = threading.Thread(target=body, daemon=True)
+            worker.start()
+            worker.join(SCRIPT_TIMEOUT_S)
+    finally:
+        sys.argv = argv0
+        os.chdir(cwd0)
+    secs = time.perf_counter() - t0
+    check(not worker.is_alive(), f"script {name} still ran after "
+          f"{SCRIPT_TIMEOUT_S} s; printed: {buf.getvalue()[-2000:]}")
+    if err:
+        raise SmokeFailure(f"script {name} {' '.join(argv)} failed: "
+                           f"{err[0]!r}; printed: {buf.getvalue()[-2000:]}"
+                           ) from err[0]
+    return buf.getvalue(), secs
+
+
+def _run_scripts(torch, port, pk, dev, tmp, main_info, slam) -> dict:
+    """The example scripts (ouster_sdk_tpu_torch.examples.scripts, the
+    port's counterparts of the repository's examples/*.py) on the card,
+    each in this process as its command line runs it, in a directory of
+    its own: over SCRIPT_FRAMES frames of the main cell (a capture with its
+    metadata json beside it) and, for the two SLAM scripts, over the first
+    SCRIPT_YARD_FRAMES frames of the yard. device_pipeline's XYZ is held
+    bit-equal to the plain version on the same planes, with and without
+    poses. pcap_to_pointcloud, osf_write_read, slam_trajectory,
+    viz_snapshot, filter_and_mask and bag_roundtrip run again over the
+    numpy ScanBatcher (OUSTER_SDK_TPU_DEVICE_DECODE=0), and their files
+    and text are held byte-equal. emulator_live_loop and live_sensor run
+    over the yard's frames, whose columns are all valid (a main cell scan
+    is never complete()), and are held to what the emulator served for
+    each frame id they print. gl_viewer runs where libEGL.so.1 loads,
+    else the reason is printed. Prints each script's wall time and
+    planar_project launches; returns the launches by case."""
+    import copy
+    import ctypes
+    import shutil
+
+    from ouster_sdk_tpu_torch.io import device_engine as de
+    from ouster_sdk_tpu_torch.ops import fused
+    from ouster_sdk_tpu_torch.sensor.emulator import (SensorEmulator,
+                                                      looping_packets_factory)
+
+    env = "OUSTER_SDK_TPU_DEVICE_DECODE"
+    work = os.path.join(tmp, "scripts")
+    os.makedirs(work)
+    made = {case: 0 for case in pk.CASES}
+
+    def capture(name, info, packets):
+        """A capture of `packets` in work/ with its metadata json."""
+        info = copy.deepcopy(info)
+        info.config.udp_profile_lidar = info.format.udp_profile_lidar
+        info.config.udp_port_lidar = 7502
+        path = os.path.join(work, name + ".pcap")
+        write_capture(path, packets)
+        with open(os.path.join(work, name + ".json"), "w") as f:
+            f.write(info.to_json_string())
+        return path
+
+    def files(d):
+        out = {}
+        for n in sorted(os.listdir(d)):
+            with open(os.path.join(d, n), "rb") as f:
+                out[n] = f.read()
+            check(len(out[n]) > 0, f"{n} is empty")
+        return out
+
+    def run(name, argv, route=None, tag="card"):
+        """The script over the engine on the card (route None) or the
+        numpy batcher ("0"), in work/<name>_<tag>: (text, files, seconds,
+        launches by case, engine scans)."""
+        d = os.path.join(work, f"{name}_{tag}")
+        os.makedirs(d)
+        if route is not None:
+            os.environ[env] = route
+        de.stats.update(batches=0, scans=0, osf_batches=0)
+        pk.reset_launches()
+        try:
+            text, secs = run_script(torch, name, argv, d)
+        finally:
+            os.environ.pop(env, None)
+        launched = {c: n for c, n in pk.launches.items() if n}
+        if route is None:
+            for c, n in launched.items():
+                made[c] += n
+        print(f"script {name} ({tag}): {secs:.2f} s, planar_project "
+              f"launches {launched or 0} [{CARD}]")
+        return text, files(d), secs, launched, de.stats["scans"]
+
+    def both_routes(name, argv, want_files):
+        """run() on the card and over the batcher; files and text
+        byte-equal; the card's route decoded on the engine."""
+        card = run(name, argv)
+        host = run(name, argv, "0", "batcher")
+        check(card[4] > 0 and host[4] == 0,
+              f"{name}: engine scans {card[4]} on the card's route, "
+              f"{host[4]} over the batcher")
+        check(sorted(card[1]) == sorted(want_files),
+              f"{name} wrote {sorted(card[1])}, expected {want_files}")
+        differ = [n for n in card[1] if card[1][n] != host[1].get(n)]
+        check(not differ and card[1].keys() == host[1].keys(),
+              f"{name}: {differ} differ between the engine and the batcher")
+        check(card[0] == host[0] and card[0].strip(),
+              f"{name} printed other text over the engine:\n{card[0]}\n"
+              f"over the batcher:\n{host[0]}")
+        print(f"script {name}: text and {len(card[1])} files "
+              f"({', '.join(card[1]) or 'none'}) byte-equal over the engine "
+              f"and the batcher; {card[2]:.2f} s / {host[2]:.2f} s")
+        return card
+
+    try:
+        t0 = time.perf_counter()
+        main = capture("main", main_info, synth_packets(
+            main_info, range(1, SCRIPT_FRAMES + 1)))
+        yinfo = slam["info"]
+        size = port.PacketFormat.from_info(yinfo).lidar_packet_size
+        n_pkts = yinfo.format.columns_per_frame // \
+            yinfo.format.columns_per_packet
+        with port.PcapReader(slam["path"]) as reader:
+            ypkts = [(bytes(payload), pi.timestamp) for pi, payload in reader
+                     if len(payload) == size][:SCRIPT_YARD_FRAMES * n_pkts]
+        yard = capture("yard", yinfo, ypkts)
+        sets = list(port.open_source(main))
+        check(len(sets) == SCRIPT_FRAMES, f"{len(sets)} scan sets")
+        print(f"scripts: inputs {SCRIPT_FRAMES} frames of the main cell "
+              f"and {SCRIPT_YARD_FRAMES} of the yard written in "
+              f"{time.perf_counter() - t0:.2f} s")
+
+        # device_pipeline: every projection recorded, then held bit-equal
+        # to the plain version on the same planes
+        calls, project = [], fused.ScanPipeline.project_planar
+
+        def recorded(self, planes, col_hdrs, poses=None, words=None):
+            out = project(self, planes, col_hdrs, poses=poses, words=words)
+            calls.append((self, planes, col_hdrs, poses, out))
+            return out
+
+        fused.ScanPipeline.project_planar = recorded
+        try:
+            text, _, secs, launched, _ = run("device_pipeline", [main])
+        finally:
+            fused.ScanPipeline.project_planar = project
+        check(launched == {"planar_dual": 1, "planar_dual_dewarp": 1},
+              f"device_pipeline launched {launched}")
+        check(len(calls) == 2 and calls[0][3] is None
+              and calls[1][3] is not None,
+              f"device_pipeline projected {len(calls)} times")
+        for pipe, planes, hdrs, poses, out in calls:
+            planes_d = pk.words_tensor(planes, dev)
+            hdrs_d = pk.words_tensor(hdrs, dev)
+            want = pk.unpack_project_planar_batched_plain(
+                planes_d, hdrs_d, pipe.planar_lut.stack, pipe.plan,
+                dual=pipe.dual, poses=None if poses is None else
+                poses.to(torch.float32).contiguous())
+            compare(out, want, "device_pipeline"
+                    + (" with poses" if poses is not None else ""))
+        r = float(as_tuple(calls[0][4])[0].abs().max())
+        h, w = (main_info.format.pixels_per_column,
+                main_info.format.columns_per_frame)
+        check(f"max |r| = {r:.2f} m" in text
+              and f"XYZ ({SCRIPT_FRAMES}, {h}, {w}, 3)" in text
+              and "RANGE2" in text, f"device_pipeline printed:\n{text}")
+        print(f"script device_pipeline: XYZ bit-equal to the plain version "
+              f"without and with poses ({SCRIPT_FRAMES} frames of "
+              f"{h}x{w} dual), max |r| {r:.2f} m; {secs:.2f} s")
+
+        # the scripts over both routes
+        both_routes("pcap_to_pointcloud", [main], ["cloud.ply"])
+        card = both_routes("osf_write_read", [main], ["recording.osf"])
+        check(card[3].get("planar", 0) > 0,
+              f"osf_write_read's read back launched {card[3]}")
+        both_routes("slam_trajectory", [yard], ["poses_kitti.txt"])
+        both_routes("filter_and_mask", [main], [])
+        both_routes("bag_roundtrip", [main, "."],
+                    ["recording.bag", "recording.db3", "recording.mcap"])
+        both_routes("viz_snapshot", [main], ["scan.png"])
+
+        # the scripts run once, on the card
+        text, out, secs, launched, scans = run("pose_optimizer_example",
+                                               [yard, "."])
+        check(scans > 0 and launched.get("planar", 0) > 0
+              and sorted(out) == ["po_orbit.png", "po_top.png",
+                                  "refined.osf", "slammed.osf"]
+              and f"optimized {SCRIPT_YARD_FRAMES} scans" in text,
+              f"pose_optimizer_example: {sorted(out)}, launches "
+              f"{launched}, engine scans {scans}:\n{text}")
+        text, _, _, _, scans = run("zone_monitor_emulation", [main])
+        check(scans > 0 and "zone pixels:" in text
+              and "returns inside zone" in text,
+              f"zone_monitor_emulation printed:\n{text}")
+        text, _, _, _, _ = run("sensor_config", [main])
+        check("staged dual-return profile" in text
+              and f"beam count: {h}" in text,
+              f"sensor_config printed:\n{text}")
+
+        # the live scripts: each complete scan is the one served (the yard,
+        # whose columns are all valid: a scan of the main cell, with 3 % of
+        # its columns invalid, is never complete())
+        ysets = list(port.open_source(yard))
+        text, _, _, _, scans = run("emulator_live_loop", [yard, "3"])
+        n = hold_served(text, ysets, LIVE_LOOP_LINE, valid_px)
+        check(n == 3 and scans > 0 and "received 3 complete scans" in text,
+              f"emulator_live_loop: {scans} engine scans:\n{text}")
+        print(f"script emulator_live_loop: {n} complete scans, each the "
+              f"frame served")
+        info = copy.deepcopy(ysets[0][0].sensor_info)
+        info.config.udp_port_lidar, info.config.udp_port_imu = \
+            free_udp_ports(2)
+        emu = SensorEmulator(info, looping_packets_factory(ysets, info),
+                             http_port=0, rate=1.0, loop=True).start()
+        try:
+            text, _, _, _, scans = run(
+                "live_sensor", [f"127.0.0.1:{emu.http_port}", "4"])
+        finally:
+            emu.stop()
+        n = hold_served(text, ysets, LIVE_SENSOR_LINE, mean_range)
+        check(n >= 1 and scans > 0 and text.count("\nscan ") == 4,
+              f"live_sensor: {scans} engine scans:\n{text}")
+        print(f"script live_sensor: {n} of 4 scans complete, each the "
+              f"frame served")
+
+        # gl_viewer where the host has the EGL it needs
+        try:
+            ctypes.CDLL("libEGL.so.1")
+            why = None
+        except OSError as e:
+            why = str(e)
+        if why is None:
+            text, out, _, _, _ = run("gl_viewer", [main])
+            check(list(out) == ["gl_scan.png"]
+                  and out["gl_scan.png"][:4] == b"\x89PNG"
+                  and "points on OpenGL" in text,
+                  f"gl_viewer: {sorted(out)}:\n{text}")
+        else:
+            print(f"script gl_viewer: not run, libEGL.so.1 does not load "
+                  f"here ({why})")
+    finally:
+        shutil.rmtree(work)
+    return made
+
 
 SLAM_FRAMES = 30
 YARD_SPEED = 1.0                   # m a frame: 10 m/s at 10 Hz

@@ -25,7 +25,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
-PACKAGE = "ouster-sdk-tpu-torch"
+#: the distribution that ships the package (pyproject.toml's name)
+PACKAGE = "ouster-sdk-tpu"
 
 
 def cpu_brand() -> str:

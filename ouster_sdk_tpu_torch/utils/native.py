@@ -20,10 +20,11 @@ wrapper checks the dtype, shape and C-contiguity of each array it hands to
 C before the call, and counts its calls in `calls`.
 
 The wire stagings of io.frames run through it too: the bit-packed
-grouper (group_frames_packed) and the BP64 encoder (bp64_encode). The
-library also exports onat_stage_frame and onat_crc64_check_batch; they
-are bound with their signatures and have no wrapper: no path of the
-port stages through them.
+grouper (group_frames_packed) and the BP64 encoder (bp64_encode).
+stage_frame places one frame's packets into their slots by measurement
+id, as the JAX package's wrapper does; no path of either package stages
+through it. The library also exports onat_crc64_check_batch, bound with
+its signature and without a wrapper, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 calls: Dict[str, int] = {"crc64": 0, "pcap_scan": 0, "group_frames": 0,
                          "group_frames_planar": 0, "group_frames_packed": 0,
                          "bp64_encode": 0, "png_unfilter": 0,
-                         "udp_recv_batch": 0}
+                         "udp_recv_batch": 0, "stage_frame": 0}
 #: seconds the build took in this process (None: loaded from disk, or not
 #: loaded yet)
 build_seconds: Optional[float] = None
@@ -299,6 +300,39 @@ def pcap_scan(data, swap_endian: bool, ts_nano: bool,
     end = int(offsets[n - 1] + sizes[n - 1]) if n else 0
     return (payloads[:end], offsets[:n], sizes[:n], ts[:n], ports[:n],
             dst_ips[:n])
+
+
+def stage_frame(payloads: np.ndarray, offsets: np.ndarray,
+                sizes: np.ndarray, pkt_bytes: int, mid_off: int,
+                cols_per_packet: int, n_slots: int
+                ) -> Optional[np.ndarray]:
+    """One frame's packets at `offsets` (`sizes` bytes each, int64) placed
+    into a zeroed (n_slots, pkt_bytes) u8 frame, each at the slot of its
+    first column's measurement id (the u16 at byte `mid_off`) divided by
+    cols_per_packet; packets of another size than pkt_bytes and slots
+    past the frame are dropped, and a later packet of a slot wins. None
+    without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    payloads = _arr(payloads, "payloads", np.uint8, (None,))
+    offsets = np.ascontiguousarray(offsets, np.int64)
+    sizes = _arr(sizes, "sizes", np.int64, offsets.shape)
+    # the measurement id is read as a 2-byte load inside each packet
+    if not 0 <= mid_off <= pkt_bytes - 2:
+        raise ValueError(f"measurement id byte {mid_off} outside a packet "
+                         f"of {pkt_bytes} bytes")
+    if n_slots < 1 or cols_per_packet < 1:
+        raise ValueError(f"n_slots ({n_slots}) and cols_per_packet "
+                         f"({cols_per_packet}) must be positive")
+    # only the packets of pkt_bytes are read
+    _packets(payloads, offsets[sizes == pkt_bytes], pkt_bytes)
+    frame = np.zeros((n_slots, pkt_bytes), dtype=np.uint8)
+    calls["stage_frame"] += 1
+    lib.onat_stage_frame(_ptr(payloads), _ptr(offsets), _ptr(sizes),
+                         offsets.size, pkt_bytes, mid_off, cols_per_packet,
+                         _ptr(frame), n_slots)
+    return frame
 
 
 def group_frames(payloads: np.ndarray, offsets: np.ndarray,

@@ -9,10 +9,15 @@ node id is one case here, which passes only if it passed there.
 
 The list holds the cases of the JAX package's tests for the host layer's
 modules (derived views, filters, scan-source semantics, PNG series, point
-clouds, bags, utils), the pose optimizer, the CLI's plugin runner, the
-viewer (its OpenGL cases run on the host's surfaceless EGL) and the
-examples package that neither import jax nor read the reference SDK's
-fixture files (cases needing those or the slow marker are left out).
+clouds, bags, utils, image ops and downsampling), the zone model, the pose
+optimizer, the CLI's plugin runner and `util system-info`, the viewer (its
+OpenGL cases run on the host's surfaceless EGL) and the examples package
+that neither import jax nor read the reference SDK's fixture files (cases
+needing those or the slow marker are left out). Two JAX-idiom names that
+test_zone.py and test_image_ops.py import are bound to the port's
+counterparts in the subprocess (zone_occupancy_jax ->
+zone_occupancy_device, voxel_downsample_jax -> voxel_downsample_device);
+the cases of those files that call them with jnp arrays are left out.
 Three viewer cases are left out because they read private names of the
 package under test, which a port need not share: test_gl_viewer.py's
 test_pointviz_gl_backend_switch (PointViz._gl_renderer) and
@@ -57,6 +62,16 @@ CASES = [
     "tests/test_gl_viewer.py::test_range_lut_path_equals_direct_xyz",
     "tests/test_gl_viewer.py::test_range_zero_discard",
     "tests/test_gl_viewer.py::test_window_gated_headless",
+    "tests/test_image_ops.py::test_autoexposure_few_points_noop",
+    "tests/test_image_ops.py::test_autoexposure_ignores_zeros_and_is_damped",
+    "tests/test_image_ops.py::test_autoexposure_occluded_frame_freezes_state",
+    "tests/test_image_ops.py::test_autoexposure_stretches_to_unit_range",
+    "tests/test_image_ops.py::test_beam_uniformity_removes_row_bias",
+    "tests/test_image_ops.py::test_normals_flat_wall",
+    "tests/test_image_ops.py::test_normals_zero_range_pixels",
+    "tests/test_image_ops.py::test_voxel_downsample_attribs",
+    "tests/test_image_ops.py::test_voxel_downsample_centroids",
+    "tests/test_model_commands.py::test_util_system_info",
     "tests/test_pose_optimizer.py::test_absolute_pose_anchors_pull_trajectory",
     "tests/test_pose_optimizer.py::test_loss_function_enum_mapping",
     "tests/test_pose_optimizer.py::test_point_constraints",
@@ -97,6 +112,17 @@ CASES = [
     "tests/test_viz_modes.py::test_imu_subplot_renders",
     "tests/test_viz_modes.py::test_po_viz_snapshots",
     "tests/test_viz_modes.py::test_simple_mode_names_single_and_dual",
+    "tests/test_zone.py::test_emulated_zone_mon_hysteresis",
+    "tests/test_zone.py::test_emulated_zone_mon_vacancy_mode",
+    "tests/test_zone.py::test_ray_triangle",
+    "tests/test_zone.py::test_stl_roundtrip",
+    "tests/test_zone.py::test_zone_monitor_end_to_end",
+    "tests/test_zone.py::test_zone_viz_snapshot",
+    "tests/test_zone.py::test_zoneset_live_ids_zip_roundtrip",
+    "tests/test_zone.py::test_zoneset_requires_sensor_to_body",
+    "tests/test_zone.py::test_zoneset_zip_roundtrip",
+    "tests/test_zone.py::test_zrb_rejects_corruption",
+    "tests/test_zone.py::test_zrb_roundtrip",
 ]
 
 # Runs in the subprocess: argv[1] is the JSON list of node ids; prints one
@@ -127,6 +153,13 @@ for name, mod in list(sys.modules.items()):
     if name.startswith(port.__name__) and \
             getattr(mod, "default_device", None) is real:
         mod.default_device = cpu
+
+# the JAX-idiom names the JAX package's tests import, bound to the port's
+# counterparts (in this process only)
+sys.modules["ouster_sdk_tpu.zone.monitor"].zone_occupancy_jax = \
+    sys.modules["ouster_sdk_tpu.zone.monitor"].zone_occupancy_device
+sys.modules["ouster_sdk_tpu.ops.downsample"].voxel_downsample_jax = \
+    sys.modules["ouster_sdk_tpu.ops.downsample"].voxel_downsample_device
 
 import pytest
 

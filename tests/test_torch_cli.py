@@ -281,6 +281,12 @@ def test_testing_and_osf_groups_match(yard, tmp_path, monkeypatch):
     same_file(tmp_path, "m.osf")
 
 
+def without_torch(packages: dict) -> dict:
+    """A `packages` blob of the port without its "torch" entry."""
+    assert "torch" in packages
+    return {k: v for k, v in packages.items() if k != "torch"}
+
+
 def test_util_commands(yard, tmp_path, monkeypatch):
     meta = os.path.join(os.path.dirname(yard[0]), "yard.json")
     p, j = both(tmp_path, monkeypatch, ["util", "validate-metadata", meta])
@@ -290,6 +296,8 @@ def test_util_commands(yard, tmp_path, monkeypatch):
         a, b = json.loads(p.output), json.loads(j.output)
         assert sorted(a) == sorted(b)
         assert a["platform"] == b["platform"] and a["cpuinfo"] == b["cpuinfo"]
+        assert without_torch(a["packages"]) == b["packages"] == \
+            {"ouster-sdk-tpu": pt.__version__}
     p, j = both(tmp_path, monkeypatch, ["util", "benchmark", yard[0],
                                         "--frames", "3", "--report-dir",
                                         "rep", "--trace-dir", "trace"])
@@ -299,6 +307,9 @@ def test_util_commands(yard, tmp_path, monkeypatch):
     assert sorted(a) == sorted(b) == ["pcap", "sys_info", "times"]
     assert a["pcap"] == b["pcap"] and a["pcap"]["n_frames"] == 3
     assert sorted(a["sys_info"]) == sorted(b["sys_info"])
+    assert without_torch(a["sys_info"]["packages"]) == \
+        b["sys_info"]["packages"] == {"ouster-sdk-tpu": pt.__version__}
+    assert f"  ouster-sdk-tpu: {pt.__version__}" in p.output.splitlines()
     keys = sorted(b["times"])
     assert sorted(a["times"]) == sorted(
         "icp_device" if k == "icp_tpu" else k for k in keys)

@@ -111,8 +111,9 @@ def test_runs_with_jax_unimportable():
 
 
 def test_viewer_and_examples_run_with_jax_unimportable(tmp_path):
-    """ouster_sdk_tpu_torch.viz, .examples (every module) and
-    .slam.ply_to_png with jax and the JAX package made unimportable: one
+    """ouster_sdk_tpu_torch.viz, .examples (every module, the example
+    scripts of .examples.scripts included, none of which prints at import)
+    and .slam.ply_to_png with jax and the JAX package made unimportable: one
     software snapshot of a scan and one top-down render of a point
     cloud."""
     code = textwrap.dedent(f"""
@@ -127,9 +128,11 @@ def test_viewer_and_examples_run_with_jax_unimportable(tmp_path):
         from ouster_sdk_tpu_torch.core.types import LidarMode
         from ouster_sdk_tpu_torch.io.cloud_io import write_pointcloud
         from ouster_sdk_tpu_torch.slam.ply_to_png import ply_to_png
-        for m in pkgutil.iter_modules(examples.__path__):
-            importlib.import_module("ouster_sdk_tpu_torch.examples."
-                                    + m.name)
+        for m in pkgutil.walk_packages(examples.__path__,
+                                       "ouster_sdk_tpu_torch.examples."):
+            importlib.import_module(m.name)
+        assert "ouster_sdk_tpu_torch.examples.scripts.device_pipeline" \
+            in sys.modules
         info = pt.default_sensor_info(LidarMode(512, 10))
         scan = pt.LidarScan(info)
         rng = np.random.default_rng(0)
@@ -150,7 +153,7 @@ def test_viewer_and_examples_run_with_jax_unimportable(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=300, cwd=ROOT)
     assert res.returncode == 0, res.stderr
-    assert res.stdout.strip().endswith("ok")
+    assert res.stdout == "ok\n"
 
 def test_wire_and_parallel_run_with_jax_unimportable(tmp_path):
     """ops.packed, ops.bp64, the wire stagings of io.frames and parallel/

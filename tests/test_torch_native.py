@@ -5,7 +5,8 @@ io/frames.py that keep its contracts: pcap_scan, the word-planar grouper
 grouper and crc64, byte for byte on the captures the engine tests
 synthesize, on big-endian and nanosecond captures, on truncated tails and
 on files shorter than a pcap header; pcap_scan takes a capture's bytes as the
-JAX package's does, with equal outputs. Then FrameReader and the device engine
+JAX package's does, with equal outputs, and stage_frame places packets as
+the JAX package's wrapper does, byte for byte. Then FrameReader and the device engine
 with the library and with `native.get_lib` patched to None give equal
 output, and the build and the wrappers refuse what they cannot run.
 """
@@ -321,6 +322,110 @@ def test_staging_matches_numpy(capture, monkeypatch):
         want, _ = _staging(path, pinfo)
     _same(got, want, "staging")
     assert native.calls["group_frames_planar"] == n_planar
+
+
+def _jax_native():
+    from ouster_sdk_tpu.utils import native as jnative
+
+    if jnative.get_lib() is None:
+        pytest.skip("the JAX package's native library did not build")
+    return jnative
+
+
+def _slots(pinfo):
+    """(pkt_bytes, mid_off, cols_per_packet, n_slots) of a sensor."""
+    pf, plan = pt.PacketFormat.from_info(pinfo), pt.make_decode_plan(pinfo)
+    return (pf.lidar_packet_size, (plan.hw + plan.mid_word) * 4, plan.cpp,
+            plan.n_pkts)
+
+
+def test_stage_frame_matches_the_jax_package(capture):
+    """stage_frame over every datagram of each capture (other sizes
+    dropped, later packets of a slot winning) and over the first half of
+    its datagrams into half the slots (later slots dropped): byte-equal to
+    the JAX package's wrapper, one count a call."""
+    jnative = _jax_native()
+    path, pinfo = capture
+    payloads, offsets, sizes = fr.FrameReader(path, pinfo)._scan()[:3]
+    pkt_bytes, mid_off, cpp, n_slots = _slots(pinfo)
+    native.reset_calls()
+    for n, slots in ((offsets.size, n_slots),
+                     (offsets.size // 2, max(n_slots // 2, 1))):
+        args = (payloads, offsets[:n], sizes[:n], pkt_bytes, mid_off, cpp,
+                slots)
+        got, want = native.stage_frame(*args), jnative.stage_frame(*args)
+        assert got.dtype == want.dtype == np.uint8
+        assert got.shape == (slots, pkt_bytes)
+        assert np.array_equal(got, want)
+    assert native.calls["stage_frame"] == 2
+
+
+def _stage_frame_packets(pinfo):
+    """Five packets of one frame in one buffer: slot 0, a packet 4 bytes
+    short, slot 2, slot 0 again with other bytes, a packet past the last
+    slot, and last a packet 4 bytes short that ends the buffer (closer to
+    its end than pkt_bytes)."""
+    pkt_bytes, mid_off, cpp, n_slots = _slots(pinfo)
+    rng = np.random.default_rng(5)
+    pkts, sizes = [], []
+    for slot, size in ((0, pkt_bytes), (1, pkt_bytes - 4), (2, pkt_bytes),
+                       (0, pkt_bytes), (n_slots, pkt_bytes),
+                       (3, pkt_bytes - 4)):
+        p = rng.integers(0, 256, size, dtype=np.uint8)
+        p[mid_off:mid_off + 2] = np.frombuffer(
+            np.uint16(slot * cpp + 1).tobytes(), np.uint8)
+        pkts.append(p)
+        sizes.append(size)
+    offsets = np.cumsum([0] + sizes[:-1]).astype(np.int64)
+    return (np.concatenate(pkts), offsets, np.array(sizes, np.int64), pkts,
+            (pkt_bytes, mid_off, cpp, n_slots))
+
+
+def test_stage_frame_drops_wrong_sizes_and_slots_past_the_frame():
+    jnative = _jax_native()
+    pinfo = engine_infos(DUAL)[1]
+    payloads, offsets, sizes, pkts, layout = _stage_frame_packets(pinfo)
+    got = native.stage_frame(payloads, offsets, sizes, *layout)
+    assert np.array_equal(got, jnative.stage_frame(payloads, offsets, sizes,
+                                                   *layout))
+    want = np.zeros_like(got)
+    want[0], want[2] = pkts[3], pkts[2]
+    assert np.array_equal(got, want)
+
+
+def test_stage_frame_checks_its_arguments(monkeypatch):
+    """A measurement id past the packet's end (the C body reads 2 bytes
+    there unchecked), no slots, no columns a packet, sizes of another dtype
+    or length, a packet past the buffer or a payload of another dtype
+    raise before the call and count nothing; without the library the
+    wrapper returns None."""
+    pinfo = engine_infos(DUAL)[1]
+    payloads, offsets, sizes, _, layout = _stage_frame_packets(pinfo)
+    pkt_bytes, mid_off, cpp, n_slots = layout
+    native.reset_calls()
+    bad = [
+        dict(mid_off=pkt_bytes - 1), dict(mid_off=-1),
+        dict(mid_off=pkt_bytes + 100), dict(n_slots=0),
+        dict(cols_per_packet=0), dict(sizes=sizes.astype(np.int32)),
+        dict(sizes=sizes[:-1]),
+        dict(sizes=np.append(sizes[:-1], pkt_bytes)),   # past the end
+        dict(offsets=np.append(-1, offsets[1:])),
+        dict(payloads=payloads.view(np.int8)),
+        dict(payloads=payloads.reshape(-1, 2)),
+    ]
+    base = dict(payloads=payloads, offsets=offsets, sizes=sizes,
+                pkt_bytes=pkt_bytes, mid_off=mid_off, cols_per_packet=cpp,
+                n_slots=n_slots)
+    for kw in bad:
+        with pytest.raises(ValueError):
+            native.stage_frame(**{**base, **kw})
+    assert native.calls["stage_frame"] == 0
+    assert native.stage_frame(**{**base, "mid_off": pkt_bytes - 2}) \
+        is not None
+    assert native.calls["stage_frame"] == 1
+    _numpy_route(monkeypatch)
+    assert native.stage_frame(**base) is None
+    assert native.calls["stage_frame"] == 1
 
 
 @pytest.mark.parametrize("max_frames", [1, 2, 3])
