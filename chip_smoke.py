@@ -3825,6 +3825,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     from ouster_sdk_tpu_torch.slam import device_icp as di
     from ouster_sdk_tpu_torch.slam import engine as se
     from ouster_sdk_tpu_torch.slam import kiss_icp as ki
+    from ouster_sdk_tpu_torch.utils import profiling
 
     info = synth_info(MAIN_PROFILE)
     path = os.path.join(tmp, "yard.pcap")
@@ -3943,7 +3944,13 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         for c in counters:
             c.__enter__()
         di.DeviceICP.register_frame = sync_counted
-        tf32_poses, _, secs = drive("device")
+        # the program's tracer on: its map upload spans and its count of
+        # host syncs, held to the sync debug mode's below
+        profiling.clear()
+        with profiling.tracing(True):
+            tf32_poses, _, secs = drive("device")
+        traced = profiling.snapshot()
+        profiling.clear()
     finally:
         di.DeviceICP.register_frame = register
         for c in counters:
@@ -3969,9 +3976,13 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     check(len(frame_syncs) == SLAM_FRAMES,
           f"{len(frame_syncs)} registrations in the sync-counted run")
     syncs = [len(w) for w in frame_syncs]
+    counted = sum(c.n for c in traced.counts if c.name == "icp.host_syncs")
     print(f"slam: host syncs by torch's sync debug mode (the registering "
-          f"thread, the TF32 run) {sum(syncs)} in {SLAM_FRAMES} frames; "
+          f"thread, the TF32 run) {sum(syncs)} in {SLAM_FRAMES} frames, "
+          f"by the program's icp.host_syncs counter {counted}; "
           f"where, frame 10: {sorted(set(frame_syncs[10]))}")
+    check(counted == sum(syncs), f"icp.host_syncs counted {counted}, the "
+          f"sync debug mode {sum(syncs)}")
     for k, f in enumerate(frames):
         d_err = np.linalg.norm((dev_poses[k, :3, 3] - dev_poses[k - 1, :3, 3])
                                - (gt[k, :3, 3] - gt[k - 1, :3, 3])) \
@@ -4003,19 +4014,21 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         print(f"slam {name} backend: scans/s "
               + ", ".join(f"{SLAM_FRAMES / s:.2f}" for s in vals)
               + f" (open_source -> SlamEngine.update, {SLAM_FRAMES} frames, "
-              f"in turns; the second device run with the layer timers and "
-              f"torch's sync debug mode on) "
+              f"in turns; the second device run with the layer timers, "
+              f"torch's sync debug mode and the program's tracer on) "
               f"[{CARD}]")
         FPS[f"slam {name}"] = SLAM_FRAMES / vals[0]
     nn_ms = sum(s.elapsed_time(e) for s, e in events)
     index_ms = sum(s.elapsed_time(e) for s, e in index_events)
     reg = counters[[n for n, _, _ in layer_fns].index(
         "register_points_device")]
-    upload = sum(f["upload_s"] for f in frames) * 1e3
+    upload = sum(s.end_ns - s.start_ns for s in traced.spans
+                 if s.name == "icp.map_upload") * 1e-6
     for (name, _, _), c in zip(layer_fns, counters):
         print(f"slam layer {name}: {c.seconds * 1e3 / SLAM_FRAMES:.3f} "
               f"ms/frame ({c.n} calls)")
-    print(f"slam layer map upload (pointcloud + copy, first device run): "
+    print(f"slam layer map upload (pointcloud + copy, the tracer's "
+          f"icp.map_upload spans, second device run): "
           f"{upload / SLAM_FRAMES:.3f} ms/frame")
     # the same searches and builds replayed with the host's issue taken out:
     # the card's own time a frame

@@ -192,16 +192,19 @@ def XYZLutFactory(info, use_extrinsics: bool = False):
     OUSTER_SDK_TPU_DEVICE_XYZ=0 disables serving (always recompute in
     f64). `project.return_xyz(scan, ret)` does the same for either return
     (0: RANGE, 1: RANGE2); io.derived.filter_xyz projects through it."""
+    from .utils import profiling
+
     lut = make_xyz_lut(info, use_extrinsics)
 
     def return_xyz(scan, ret: int):
-        rng = scan.field(ChanField.RANGE2 if ret else ChanField.RANGE)
-        if hasattr(scan, "cached_xyz") and \
-                os.environ.get("OUSTER_SDK_TPU_DEVICE_XYZ") != "0":
-            hit = scan.cached_xyz(ret, use_extrinsics, rng)
-            if hit is not None:
-                return hit.astype(np.float64)
-        return lut(rng)
+        with profiling.span("xyzlut", scan.frame_id):
+            rng = scan.field(ChanField.RANGE2 if ret else ChanField.RANGE)
+            if hasattr(scan, "cached_xyz") and \
+                    os.environ.get("OUSTER_SDK_TPU_DEVICE_XYZ") != "0":
+                hit = scan.cached_xyz(ret, use_extrinsics, rng)
+                if hit is not None:
+                    return hit.astype(np.float64)
+            return lut(rng)
 
     def project(scan_or_range):
         if hasattr(scan_or_range, "field"):

@@ -41,6 +41,7 @@ from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.planar_kernels import PlanarLut, project_ranges, words_tensor
 from ..ops.unpack import decode_frame_planar_batch, make_decode_plan
 from ..ops.xyzlut import make_xyz_lut
+from ..utils import profiling
 from .frames import FrameReader, stage_planar
 
 #: Introspection counters (reset freely in tests): proof of which engine
@@ -94,8 +95,11 @@ def supports_device_decode(info: SensorInfo,
 
 def _to_host(dev: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """The decode's output dict copied to the host, each field in its scan
-    dtype (the decode already cast it on the device)."""
-    return {k: v.cpu().numpy() for k, v in dev.items()}
+    dtype (the decode already cast it on the device). Each copy waits for
+    the decode."""
+    with profiling.span("engine.copy_back"):
+        profiling.count("engine.d2h_copies", len(dev))
+        return {k: v.cpu().numpy() for k, v in dev.items()}
 
 
 def materialize_scan(info: SensorInfo, pf: PacketFormat, plan,
@@ -108,20 +112,21 @@ def materialize_scan(info: SensorInfo, pf: PacketFormat, plan,
     staged packet-header words, the same population ScanBatcher does per
     packet (ref: lidar_scan.cpp:1324-1372, :1546-1552). Nothing is cast:
     the decode gave every field its scan dtype."""
-    ls = LidarScan(info, field_types=field_types)
-    ls.frame_id = int(frame_id)
-    ls.sensor_info = info
+    with profiling.span("engine.materialize", int(frame_id)):
+        ls = LidarScan(info, field_types=field_types)
+        ls.frame_id = int(frame_id)
+        ls.sensor_info = info
 
-    _populate_pixel_fields(ls, plan, host, k)
+        _populate_pixel_fields(ls, plan, host, k)
 
-    ls.timestamp[:] = (host["timestamp_lo"][k].astype(np.uint64)
-                       | host["timestamp_hi"][k].astype(np.uint64)
-                       << np.uint64(32))
-    ls.measurement_id[:] = host["measurement_id"][k]
-    ls.status[:] = host["status"][k]
-    _populate_packet_headers(ls, pf, pkt_ts_row, pkt_hdrs_row,
-                             first_hdr_row)
-    return ls
+        ls.timestamp[:] = (host["timestamp_lo"][k].astype(np.uint64)
+                           | host["timestamp_hi"][k].astype(np.uint64)
+                           << np.uint64(32))
+        ls.measurement_id[:] = host["measurement_id"][k]
+        ls.status[:] = host["status"][k]
+        _populate_packet_headers(ls, pf, pkt_ts_row, pkt_hdrs_row,
+                                 first_hdr_row)
+        return ls
 
 
 def _populate_pixel_fields(ls: LidarScan, plan,
@@ -516,10 +521,11 @@ class DeviceScanIterator:
         # profiles the aux half is empty and the replay reduces to the
         # batcher's frame-id boundary/duplicate semantics.
         self._aux = _AuxApplier(info)
-        lidar_ev, aux_ev = self._reader.hybrid_streams(
-            soft_id_check=soft_id_check)
-        self._instances: List[_FrameInstance] = _AuxRouter(
-            self._aux, self.plan, self.pf, lidar_ev, aux_ev).instances
+        with profiling.span("engine.admission"):
+            lidar_ev, aux_ev = self._reader.hybrid_streams(
+                soft_id_check=soft_id_check)
+            self._instances: List[_FrameInstance] = _AuxRouter(
+                self._aux, self.plan, self.pf, lidar_ev, aux_ev).instances
 
     @property
     def id_error_count(self) -> int:
@@ -554,8 +560,13 @@ class DeviceScanIterator:
         for batch in batches:
             planes = words_tensor(batch.planes, self.device)
             hdrs = words_tensor(batch.col_hdrs, self.device)
-            host = _to_host(decode_frame_planar_batch(planes, hdrs,
-                                                      self.plan, True))
+            with profiling.span("engine.decode", int(batch.frame_ids[0])):
+                dev = decode_frame_planar_batch(planes, hdrs, self.plan,
+                                                True)
+            host = _to_host(dev)
+            # the decoded fields leave the card now, not at the next
+            # batch's decode: the device's memory peak
+            del dev
             stats["batches"] += 1
             for k in range(batch.frame_ids.size):
                 yield self._materialize(batch, k, host)
@@ -564,11 +575,12 @@ class DeviceScanIterator:
                      ) -> LidarScan:
         """Apply an instance's aux packets and opener header to its
         device-decoded scan."""
-        for kind, buf, ts in inst.aux:
-            self._aux.apply(kind, buf, ts, ls)
-        if inst.opener is not None:
-            ls.frame_status, ls.shutdown_countdown, \
-                ls.shot_limiting_countdown = inst.opener
+        with profiling.span("engine.materialize", ls.frame_id):
+            for kind, buf, ts in inst.aux:
+                self._aux.apply(kind, buf, ts, ls)
+            if inst.opener is not None:
+                ls.frame_status, ls.shutdown_countdown, \
+                    ls.shot_limiting_countdown = inst.opener
         return ls
 
     def __iter__(self) -> Iterator[LidarScan]:

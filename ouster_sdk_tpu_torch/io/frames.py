@@ -53,7 +53,7 @@ from ..core.types import SensorInfo, UDPProfileIMU, UDPProfileLidar
 from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.unpack import (DecodePlan, frame_words_from_packets,
                           make_decode_plan)
-from ..utils import native
+from ..utils import native, profiling
 from .pcap import _PCAP_MAGICS, PcapReader
 
 
@@ -96,12 +96,13 @@ def _pipelined(make_iter, depth: int, on_close=None) -> Iterator:
         try:
             it = make_iter()
             for item in it:
-                while not stop.is_set():
-                    try:
-                        q.put(item, timeout=0.2)
-                        break
-                    except queue.Full:
-                        continue
+                with profiling.span("frames.queue_full"):
+                    while not stop.is_set():
+                        try:
+                            q.put(item, timeout=0.2)
+                            break
+                        except queue.Full:
+                            continue
                 if stop.is_set():
                     return
         except BaseException as e:  # surfaced on the consumer side
@@ -118,13 +119,20 @@ def _pipelined(make_iter, depth: int, on_close=None) -> Iterator:
                 except queue.Full:
                     continue
 
+    def staged(state):
+        with state:
+            produce()
+
     def consume():
-        t = threading.Thread(target=produce, daemon=True,
-                             name="frame-staging")
+        # the tracer's state of this thread goes with the staging thread:
+        # the profiler's flag does not cross threads
+        t = threading.Thread(target=staged, args=(profiling.carry(),),
+                             daemon=True, name="frame-staging")
         t.start()
         try:
             while True:
-                item = q.get()
+                with profiling.span("frames.queue_wait"):
+                    item = q.get()
                 if item is done:
                     break
                 yield item
@@ -469,8 +477,10 @@ class FrameReader:
         cached = self._pools.get("scan_cache")
         if cached is not None and cached[0] == key:
             return cached[1]
-        res = (self._native_scan(st.st_size) if native.get_lib() is not None
-               else pcap_scan(self._path))
+        with profiling.span("frames.capture_scan"):
+            res = (self._native_scan(st.st_size)
+                   if native.get_lib() is not None
+                   else pcap_scan(self._path))
         self._pools["scan_cache"] = (key, res)
         return res
 
@@ -689,14 +699,16 @@ class FrameReader:
                 sel = groups[base:base + chunk]
                 planes, hdrs, pkt_ts, pkt_hdrs, first_hdr = pools[flip]
                 flip = (flip + 1) % len(pools)
-                for k, grp in enumerate(sel):
-                    # slices on axis 0 of C-contiguous pools: contiguous
-                    stage_planar(
-                        payloads, offsets[grp], ts[grp], pf, plan,
-                        planes[k:k + 1], hdrs[k:k + 1], fid_out[k:k + 1],
-                        ts_out[k:k + 1], out_pkt_ts=pkt_ts[k:k + 1],
-                        out_pkt_hdrs=pkt_hdrs[k:k + 1],
-                        out_first_hdr=first_hdr[k:k + 1])
+                with profiling.span("frames.stage_chunk") as sp:
+                    for k, grp in enumerate(sel):
+                        # slices on axis 0 of C-contiguous pools: contiguous
+                        stage_planar(
+                            payloads, offsets[grp], ts[grp], pf, plan,
+                            planes[k:k + 1], hdrs[k:k + 1], fid_out[k:k + 1],
+                            ts_out[k:k + 1], out_pkt_ts=pkt_ts[k:k + 1],
+                            out_pkt_hdrs=pkt_hdrs[k:k + 1],
+                            out_first_hdr=first_hdr[k:k + 1])
+                    sp.key = int(fid_out[0])
                 n = len(sel)
                 yield PlanarBatch(fid_out[:n].copy(), planes[:n],
                                   hdrs[:n], ts_out[:n].copy(), pkt_ts[:n],
@@ -850,9 +862,11 @@ class FrameReader:
         while pos < offs.size:
             planes = np.empty((chunk, n_planes, plan.h, plan.w), np.uint32)
             hdrs = np.empty((chunk, plan.schw, plan.w), np.uint32)
-            consumed, nf = stage_planar(
-                payloads, offs[pos:], tss[pos:], pf, plan, planes, hdrs,
-                fid_out, ts_out, word_sel=word_sel, io_released=released)
+            with profiling.span("frames.stage_chunk") as sp:
+                consumed, nf = stage_planar(
+                    payloads, offs[pos:], tss[pos:], pf, plan, planes, hdrs,
+                    fid_out, ts_out, word_sel=word_sel, io_released=released)
+                sp.key = int(fid_out[0]) if nf else None
             if nf == 0:
                 break
             pos += consumed

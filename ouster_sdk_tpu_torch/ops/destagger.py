@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.types import SensorInfo
+from ..utils import profiling
 
 
 def _shifts(info_or_shifts) -> np.ndarray:
@@ -65,22 +66,23 @@ def destagger_torch(fields: torch.Tensor,
                     inverse: bool = False) -> torch.Tensor:
     """Device path, same semantics as destagger(): fields (..., h, w) or
     (..., h, w, n) with shifts of length h."""
-    shifts = np.asarray(shifts, dtype=np.int64)
-    if fields.shape[-2] == shifts.size:
-        axis, w = -1, fields.shape[-1]
-        idx = torch.from_numpy(_index_map(shifts, w, inverse))
-    elif fields.ndim >= 3 and fields.shape[-3] == shifts.size:
-        axis, w = -2, fields.shape[-2]
-        idx = torch.from_numpy(_index_map(shifts, w, inverse))[..., None]
-    else:
-        raise ValueError("image height does not match shifts size")
-    idx = idx.to(fields.device).expand(fields.shape)
-    # gather has no unsigned 16/32-bit kernels: move the bits as signed
-    signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}
-    if fields.dtype in signed:
-        return torch.gather(fields.view(signed[fields.dtype]), axis, idx) \
-            .view(fields.dtype)
-    return torch.gather(fields, axis, idx)
+    with profiling.span("destagger"):
+        shifts = np.asarray(shifts, dtype=np.int64)
+        if fields.shape[-2] == shifts.size:
+            axis, w = -1, fields.shape[-1]
+            idx = torch.from_numpy(_index_map(shifts, w, inverse))
+        elif fields.ndim >= 3 and fields.shape[-3] == shifts.size:
+            axis, w = -2, fields.shape[-2]
+            idx = torch.from_numpy(_index_map(shifts, w, inverse))[..., None]
+        else:
+            raise ValueError("image height does not match shifts size")
+        idx = idx.to(fields.device).expand(fields.shape)
+        # gather has no unsigned 16/32-bit kernels: move the bits as signed
+        signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}
+        if fields.dtype in signed:
+            return torch.gather(fields.view(signed[fields.dtype]), axis, idx) \
+                .view(fields.dtype)
+        return torch.gather(fields, axis, idx)
 
 
 # typed variants matching the reference binding names (the C++ side has

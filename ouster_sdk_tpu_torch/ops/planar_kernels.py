@@ -40,6 +40,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .pose import rotate_translate
 from .precision import fma_f32, split_f64_array
 from .unpack import DecodePlan, FieldPlan, _bits, _u32
@@ -274,30 +275,31 @@ def unpack_project_planar_batched(planes: torch.Tensor,
     if precision not in ("dd", "f32"):
         raise ValueError(f"precision must be 'dd' or 'f32', not "
                          f"{precision!r}")
-    device = planes.device
-    if device.type == "cpu":
-        return unpack_project_planar_batched_plain(
-            planes, col_hdrs, lut_stack, plan, precision=precision,
-            dual=dual, poses=poses, words=words)
-    if device.type != "cuda":
-        raise ValueError(f"planar projection runs on cpu or cuda tensors, "
-                         f"not {device.type}")
-    from ..kernels.planar_project import launch
+    with profiling.span("project.issue"):
+        device = planes.device
+        if device.type == "cpu":
+            return unpack_project_planar_batched_plain(
+                planes, col_hdrs, lut_stack, plan, precision=precision,
+                dual=dual, poses=poses, words=words)
+        if device.type != "cuda":
+            raise ValueError(f"planar projection runs on cpu or cuda tensors, "
+                             f"not {device.type}")
+        from ..kernels.planar_project import launch
 
-    planes, col_hdrs, poses, idx = _prepare(planes, col_hdrs, poses, plan,
-                                            dual, words)
-    if poses is not None:
-        # a no-op for float32 contiguous poses: the kernel reads them as
-        # they are, and the call launches nothing but the kernel
-        poses = poses.to(torch.float32).contiguous()
-        if poses.data_ptr() % 16:       # a view at an odd storage offset
-            poses = poses.clone()
-    out = launch(planes, col_hdrs, lut_stack, poses, plan,
-                 _range_fields(plan, dual), idx, precision)
-    if planes.shape[0]:                 # an empty batch launches nothing
-        launches[_case(plan, dual, poses is not None, planes.shape[1],
-                       idx)] += 1
-    return out if dual else out[0]
+        planes, col_hdrs, poses, idx = _prepare(planes, col_hdrs, poses, plan,
+                                                dual, words)
+        if poses is not None:
+            # a no-op for float32 contiguous poses: the kernel reads them as
+            # they are, and the call launches nothing but the kernel
+            poses = poses.to(torch.float32).contiguous()
+            if poses.data_ptr() % 16:       # a view at an odd storage offset
+                poses = poses.clone()
+        out = launch(planes, col_hdrs, lut_stack, poses, plan,
+                     _range_fields(plan, dual), idx, precision)
+        if planes.shape[0]:                 # an empty batch launches nothing
+            launches[_case(plan, dual, poses is not None, planes.shape[1],
+                           idx)] += 1
+        return out if dual else out[0]
 
 
 @dataclass(frozen=True)
@@ -480,6 +482,7 @@ def project_ranges_batched(ranges, col_hdrs: torch.Tensor,
 def words_tensor(words: np.ndarray, device) -> torch.Tensor:
     """Staged u32 words (numpy) -> an int32 tensor on `device`, the layout
     the decode and the projection take (a bit-identical view)."""
-    return torch.from_numpy(
-        np.ascontiguousarray(words).view(np.int32)).to(device)
+    with profiling.span("h2d_copy"):
+        return torch.from_numpy(
+            np.ascontiguousarray(words).view(np.int32)).to(device)
 

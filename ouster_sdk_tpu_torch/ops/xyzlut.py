@@ -18,6 +18,7 @@ import torch
 
 from ..core.constants import RANGE_UNIT
 from ..core.types import SensorInfo
+from ..utils import profiling
 from .precision import dd_add, dd_mul_f, split_f64_array
 
 
@@ -31,8 +32,9 @@ class XYZLut:
 
     def __call__(self, range_img: np.ndarray) -> np.ndarray:
         """Reference-precision numpy projection (float64)."""
-        r = range_img.astype(np.float64)[..., None]
-        return np.where(r == 0, 0.0, r * self.direction + self.offset)
+        with profiling.span("xyzlut"):
+            r = range_img.astype(np.float64)[..., None]
+            return np.where(r == 0, 0.0, r * self.direction + self.offset)
 
 
 @dataclass

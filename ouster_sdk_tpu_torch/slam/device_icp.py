@@ -29,7 +29,6 @@ same loop as one device program (`lax.while_loop`).
 
 from __future__ import annotations
 
-import time
 from typing import Optional
 
 import numpy as np
@@ -37,6 +36,7 @@ import torch
 
 from ..kernels.icp_nn import build_icp_index, icp_nn
 from ..ops.pose import _device_of, _hat
+from ..utils import profiling
 from .kiss_icp import KissConfig, KissICP
 
 
@@ -128,7 +128,8 @@ def register_points_device(src: torch.Tensor,
     the increment is applied, when fewer than 6 correspondences remain, or
     after max_iters. Returns the (4, 4) float32 pose. `stats`, where given,
     receives the iterations run; the host reads one stop flag an
-    iteration."""
+    iteration (counted in the tracer's `icp.host_syncs`, the iterations in
+    `icp.gn_iterations`)."""
     device = src.device
     src = src.to(torch.float32)
     init_pose = init_pose.to(device, torch.float32)
@@ -145,34 +146,38 @@ def register_points_device(src: torch.Tensor,
     cur = _transform(init_pose, src)
     T_icp = torch.eye(4, **f32)
     # the map stays fixed through the loop: one index serves every search
-    index = build_icp_index(map_pts, map_valid, voxel_size)
+    with profiling.span("icp.index_build"):
+        index = build_icp_index(map_pts, map_valid, voxel_size)
     it = 0
-    while it < max_iters:
-        best_d2, best_idx = icp_nn(cur, index=index)
-        # strict <, like DataAssociation's
-        # `distance < max_correspondance_distance`
-        corr = best_d2 < mcd2
-        if src_valid is not None:
-            corr &= src_valid
-        r = cur - map_pts[best_idx]
-        r2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
-        den = ks + r2
-        w = torch.where(corr, ks2 / (den * den), zero)
-        sums = _normal_terms(cur, r, w, corr)
-        JTJ = _jtj(sums, zero).to(torch.float64)
-        # the Tikhonov floor keeps the solve finite when correspondences
-        # collapse; a converged/degenerate step then yields dx ~ 0
-        dx = torch.linalg.solve_ex(JTJ + tikhonov,
-                                   -sums[:6].to(torch.float64)).result \
-            .to(torch.float32)
-        dT = _se3_exp_kiss(dx)
-        enough = sums[16] >= 6
-        cur = torch.where(enough, _transform(dT, cur), cur)
-        T_icp = torch.where(enough, _mm(dT, T_icp), T_icp)
-        stop = (torch.linalg.vector_norm(dx) < convergence) | ~enough
-        it += 1
-        if bool(stop):
-            break
+    with profiling.span("icp.gn_loop"):
+        while it < max_iters:
+            best_d2, best_idx = icp_nn(cur, index=index)
+            # strict <, like DataAssociation's
+            # `distance < max_correspondance_distance`
+            corr = best_d2 < mcd2
+            if src_valid is not None:
+                corr &= src_valid
+            r = cur - map_pts[best_idx]
+            r2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
+            den = ks + r2
+            w = torch.where(corr, ks2 / (den * den), zero)
+            sums = _normal_terms(cur, r, w, corr)
+            JTJ = _jtj(sums, zero).to(torch.float64)
+            # the Tikhonov floor keeps the solve finite when correspondences
+            # collapse; a converged/degenerate step then yields dx ~ 0
+            dx = torch.linalg.solve_ex(JTJ + tikhonov,
+                                       -sums[:6].to(torch.float64)).result \
+                .to(torch.float32)
+            dT = _se3_exp_kiss(dx)
+            enough = sums[16] >= 6
+            cur = torch.where(enough, _transform(dT, cur), cur)
+            T_icp = torch.where(enough, _mm(dT, T_icp), T_icp)
+            stop = (torch.linalg.vector_norm(dx) < convergence) | ~enough
+            it += 1
+            profiling.count("icp.gn_iterations")
+            profiling.count("icp.host_syncs")       # bool(stop) waits
+            if bool(stop):
+                break
     if stats is not None:
         stats["iterations"] = it
     return _mm(T_icp, init_pose)
@@ -184,7 +189,7 @@ class DeviceICP(KissICP):
     maintenance; `register_points_to_map` replaced by
     register_points_device. Runs on `device`: CUDA when none is named
     (raises without a GPU). `last_frame` holds the last registration's
-    N, M, iterations and the map copy's seconds."""
+    N, M and iterations."""
 
     def __init__(self, config: Optional[KissConfig] = None, device=None):
         super().__init__(config)
@@ -199,15 +204,17 @@ class DeviceICP(KissICP):
 
         if self.local_map.empty() or source.shape[0] < 6:
             new_pose = initial_guess.copy()
-            self.last_frame = dict(n=source.shape[0], m=0, iterations=0,
-                                   upload_s=0.0)
+            self.last_frame = dict(n=source.shape[0], m=0, iterations=0)
         else:
             dev = self.device
-            t0 = time.perf_counter()
-            map_np = self.local_map.pointcloud().astype(np.float32)
-            map_t = torch.from_numpy(map_np).to(dev)
-            upload_s = time.perf_counter() - t0
+            # each pageable copy in, and the pose's read back, waits on
+            # the card: a host sync each
+            with profiling.span("icp.map_upload"):
+                map_np = self.local_map.pointcloud().astype(np.float32)
+                map_t = torch.from_numpy(map_np).to(dev)
+                profiling.count("icp.host_syncs")
             stats: dict = {}
+            profiling.count("icp.host_syncs", 2)    # source, initial guess
             pose = register_points_device(
                 torch.from_numpy(source.astype(np.float32)).to(dev), None,
                 map_t, None,
@@ -218,9 +225,9 @@ class DeviceICP(KissICP):
                 max_iters=self.config.max_num_iterations,
                 convergence=self.config.convergence_criterion, stats=stats)
             new_pose = pose.cpu().numpy().astype(np.float64)
+            profiling.count("icp.host_syncs")
             self.last_frame = dict(n=source.shape[0], m=map_np.shape[0],
-                                   iterations=stats["iterations"],
-                                   upload_s=upload_s)
+                                   iterations=stats["iterations"])
             # re-orthonormalize: ~20 f32 GN steps leave the rotation a
             # hair off SO(3), which would accumulate over a trajectory
             u, _, vt = np.linalg.svd(new_pose[:3, :3])

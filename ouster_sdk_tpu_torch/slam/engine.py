@@ -21,6 +21,7 @@ from ..core.lidar_scan import LidarScan
 from ..core.types import SensorInfo
 from ..ops.xyzlut import XYZLut, make_xyz_lut
 from ..ops.pose import _device_of
+from ..utils import profiling
 from .device_icp import DeviceICP
 from .kiss_icp import KissConfig, KissICP
 from .time_correction import ActiveTimeCorrection
@@ -90,6 +91,12 @@ def determine_voxel_size(scans: Sequence[LidarScan],
     return float(np.clip(np.mean(ranges) / 100.0, 0.05, 1.5))
 
 
+def _first_frame_id(scans: Sequence[Optional[LidarScan]]
+                    ) -> Optional[int]:
+    """The frame id of the first scan of a set: the key of its spans."""
+    return next((s.frame_id for s in scans if s is not None), None)
+
+
 class SlamEngine:
     """Facade (ref: slam_engine.h:29): update(LidarScanSet) registers the
     scans and writes world per-column poses back into them. `device` is
@@ -130,43 +137,45 @@ class SlamEngine:
         """Constant-velocity deskew: extrapolate last motion across the new
         scan's columns (ref: deskew_method.cpp
         ConstantVelocityDeskewMethod)."""
-        if self.config.deskew == "none" or self._prev_pose is None:
+        with profiling.span("slam.predict", _first_frame_id(scans)):
+            if self.config.deskew == "none" or self._prev_pose is None:
+                for s in scans:
+                    if s is not None:
+                        s.pose[:] = self._last_pose
+                return
+            rel = np.linalg.solve(self._prev_pose, self._last_pose)
+            # columns sweep one frame; extrapolate the same motion forward
+            pose1 = self._last_pose @ rel
             for s in scans:
-                if s is not None:
-                    s.pose[:] = self._last_pose
-            return
-        rel = np.linalg.solve(self._prev_pose, self._last_pose)
-        # columns sweep one frame; extrapolate the same motion forward
-        pose1 = self._last_pose @ rel
-        for s in scans:
-            if s is None:
-                continue
-            w = s.w
-            frac = np.linspace(0.0, 1.0, w, dtype=np.float64)
-            s.pose[:] = _interp_poses_along(frac, self._last_pose, pose1)
+                if s is None:
+                    continue
+                w = s.w
+                frac = np.linspace(0.0, 1.0, w, dtype=np.float64)
+                s.pose[:] = _interp_poses_along(frac, self._last_pose, pose1)
 
     def _gather_frame(self, scans: Sequence[Optional[LidarScan]],
                       mid_pose_inv: np.ndarray) -> np.ndarray:
         """Valid world points from all sensors, relative to the mid pose
         (ref: kiss_slam.cpp:96-111 + core::dewarp)."""
-        pts = []
-        for s, lut in zip(scans, self._luts):
-            if s is None:
-                continue
-            rng = s.field(ChanField.RANGE)
-            xyz = lut(rng)  # (H, W, 3) staggered, sensor/extrinsic frame
-            valid = (rng > 0) & ((s.status & 1)[None, :].astype(bool))
-            r_m = rng * 0.001
-            valid &= (r_m > self.config.min_range) & \
-                (r_m < self.config.max_range)
-            # per-column pose relative to mid
-            rel = np.einsum("ij,wjk->wik", mid_pose_inv, s.pose)
-            world = np.einsum("wij,hwj->hwi", rel[:, :3, :3], xyz) \
-                + rel[None, :, :3, 3]
-            pts.append(world[valid])
-        if not pts:
-            return np.zeros((0, 3))
-        return np.concatenate(pts, axis=0)
+        with profiling.span("slam.gather", _first_frame_id(scans)):
+            pts = []
+            for s, lut in zip(scans, self._luts):
+                if s is None:
+                    continue
+                rng = s.field(ChanField.RANGE)
+                xyz = lut(rng)  # (H, W, 3) staggered, sensor/extrinsic
+                valid = (rng > 0) & ((s.status & 1)[None, :].astype(bool))
+                r_m = rng * 0.001
+                valid &= (r_m > self.config.min_range) & \
+                    (r_m < self.config.max_range)
+                # per-column pose relative to mid
+                rel = np.einsum("ij,wjk->wik", mid_pose_inv, s.pose)
+                world = np.einsum("wij,hwj->hwi", rel[:, :3, :3], xyz) \
+                    + rel[None, :, :3, 3]
+                pts.append(world[valid])
+            if not pts:
+                return np.zeros((0, 3))
+            return np.concatenate(pts, axis=0)
 
     def update(self, scan_set) -> None:
         """(ref: kiss_slam.cpp:72-128)"""

@@ -26,6 +26,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..ops.downsample import voxel_downsample_first
+from ..utils import profiling
 
 
 @dataclass
@@ -79,7 +80,8 @@ class AdaptiveThreshold:
         self._num_samples = 1
 
     def compute_threshold(self) -> float:
-        return float(np.sqrt(self._model_sse / self._num_samples))
+        with profiling.span("slam.threshold"):
+            return float(np.sqrt(self._model_sse / self._num_samples))
 
     def update_model_deviation(self, deviation: np.ndarray) -> None:
         R = deviation[:3, :3]
@@ -194,9 +196,11 @@ class VoxelHashMap:
 
     def update(self, points: np.ndarray, pose: np.ndarray) -> None:
         """(ref: VoxelHashMap::Update): transform to world, add, prune."""
-        world = points @ pose[:3, :3].T + pose[:3, 3]
-        self.add_points(world)
-        self.remove_far_points(pose[:3, 3])
+        with profiling.span("map.add_points"):
+            world = points @ pose[:3, :3].T + pose[:3, 3]
+            self.add_points(world)
+        with profiling.span("map.remove_far"):
+            self.remove_far_points(pose[:3, 3])
 
     def _ensure_arrays(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
         """Sorted packed keys + (V, cap, 3) point array padded with +inf
@@ -333,19 +337,21 @@ class KissICP:
 
     def preprocess(self, frame: np.ndarray) -> np.ndarray:
         """Range crop (ref: kiss-icp Preprocessing.cpp)."""
-        d = np.linalg.norm(frame, axis=1)
-        keep = (d > self.config.min_range) & (d < self.config.max_range)
-        return frame[keep]
+        with profiling.span("slam.preprocess"):
+            d = np.linalg.norm(frame, axis=1)
+            keep = (d > self.config.min_range) & (d < self.config.max_range)
+            return frame[keep]
 
     def voxelize(self, frame: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """(ref: kiss_icp.cpp:50-57): map update at 0.5*voxel, registration
         source at 1.5*voxel; first-point-per-voxel like the reference's
         VoxelDownsample (VoxelUtils.cpp)."""
-        frame_downsample = voxel_downsample_first(
-            frame, self.config.voxel_size * 0.5)
-        source = voxel_downsample_first(frame_downsample,
-                                        self.config.voxel_size * 1.5)
-        return source, frame_downsample
+        with profiling.span("slam.voxelize"):
+            frame_downsample = voxel_downsample_first(
+                frame, self.config.voxel_size * 0.5)
+            source = voxel_downsample_first(frame_downsample,
+                                            self.config.voxel_size * 1.5)
+            return source, frame_downsample
 
     def register_frame(self, frame: np.ndarray, initial_guess: np.ndarray,
                        update_map: bool = True) -> np.ndarray:
