@@ -210,6 +210,7 @@ PEAK_F32_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # that figure counts a fused multiply-add as two operations; a chain of
 # error-free transforms has none, so it runs at half of that rate
 PEAK_F32_NO_FMA_PER_S = PEAK_F32_PER_S / 2
+PEAK_F64_PER_S = 34e12       # H100 SXM f64 outside the tensor cores
 KERNEL_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/planar_project.cu"
 PACKET_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/packet_project.cu"
 LUTFREE_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/lutfree_project.cu"
@@ -3822,7 +3823,9 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     (`run`), the ground truth relative to the first frame (`truth`) and
     the capture (`path`)."""
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.kernels import voxel_map as vm
     from ouster_sdk_tpu_torch.slam import device_icp as di
+    from ouster_sdk_tpu_torch.slam import device_map as dm
     from ouster_sdk_tpu_torch.slam import engine as se
     from ouster_sdk_tpu_torch.slam import kiss_icp as ki
     from ouster_sdk_tpu_torch.utils import profiling
@@ -3870,7 +3873,6 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     layer_fns = (("gather", se.SlamEngine, "_gather_frame"),
                  ("preprocess", ki.KissICP, "preprocess"),
                  ("voxelize", ki.KissICP, "voxelize"),
-                 ("map pointcloud", ki.VoxelHashMap, "pointcloud"),
                  ("register_points_device", di, "register_points_device"),
                  ("map update", ki.VoxelHashMap, "update"))
     events, index_events, largest, gathered = [], [], {}, []
@@ -3925,12 +3927,29 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     def sync_counted(self, *args, **kwargs):
         return sync_window(lambda: register(self, *args, **kwargs))
 
+    # the inputs of the device map's largest update (the most voxels held,
+    # then the most candidates), for the admission kernel's check and time
+    admit = {}
+
+    def kept_admit(*args):
+        size = (args[5], args[0].shape[0])
+        if size > admit.get("size", (-1, -1)):
+            admit.update(size=size, args=[
+                a.clone() if torch.is_tensor(a) else a for a in args])
+        return vm.voxel_admit(*args)
+
     runs = {"device": [], "host": []}
     kept = []
     nn.reset_launches()
-    dev_poses, frames, secs = drive("device", keep=range(SLAM_FRAMES))
+    vm.reset_launches()
+    dm.voxel_admit = kept_admit
+    try:
+        dev_poses, frames, secs = drive("device", keep=range(SLAM_FRAMES))
+    finally:
+        dm.voxel_admit = vm.voxel_admit
     launches = nn.launches["icp_nn"]
     index_launches = nn.launches["icp_nn_index"]
+    admit_launches = vm.launches["voxel_admit"]
     runs["device"].append(secs)
     host_poses, _, secs = drive("host")
     runs["host"].append(secs)
@@ -3971,18 +3990,25 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     check(index_launches == registrations,
           f"icp_nn index builds {index_launches} != registrations "
           f"{registrations}")
+    check(admit_launches == SLAM_FRAMES,
+          f"voxel_admit launches {admit_launches} != map updates "
+          f"{SLAM_FRAMES}")
     check(np.array_equal(tf32_poses, dev_poses),
           "the device trajectory changed with allow_tf32 = True")
     check(len(frame_syncs) == SLAM_FRAMES,
           f"{len(frame_syncs)} registrations in the sync-counted run")
     syncs = [len(w) for w in frame_syncs]
     counted = sum(c.n for c in traced.counts if c.name == "icp.host_syncs")
+    map_syncs = sum(c.n for c in traced.counts
+                    if c.name == "map.host_syncs")
     print(f"slam: host syncs by torch's sync debug mode (the registering "
           f"thread, the TF32 run) {sum(syncs)} in {SLAM_FRAMES} frames, "
-          f"by the program's icp.host_syncs counter {counted}; "
+          f"by the program's counters {counted + map_syncs} (icp.host_syncs "
+          f"{counted}, map.host_syncs {map_syncs}); "
           f"where, frame 10: {sorted(set(frame_syncs[10]))}")
-    check(counted == sum(syncs), f"icp.host_syncs counted {counted}, the "
-          f"sync debug mode {sum(syncs)}")
+    check(counted + map_syncs == sum(syncs),
+          f"icp.host_syncs + map.host_syncs counted {counted + map_syncs}, "
+          f"the sync debug mode {sum(syncs)}")
     for k, f in enumerate(frames):
         d_err = np.linalg.norm((dev_poses[k, :3, 3] - dev_poses[k - 1, :3, 3])
                                - (gt[k, :3, 3] - gt[k - 1, :3, 3])) \
@@ -4050,10 +4076,83 @@ def _run_slam(torch, port, dev, tmp) -> dict:
           f"syncs (register_points_device - icp_nn - index): "
           f"{(reg.seconds * 1e3 - nn_ms - index_ms) / SLAM_FRAMES:.3f} "
           f"ms/frame")
+    print(_voxel_admit_line(_voxel_admit_times(torch, vm, admit["args"])))
     return dict(launches=launches, index_launches=index_launches,
                 largest=largest, gathered=gathered, frames=frames,
                 info=info, scans=[kept[YARD_RAMP], kept[-1]], run=kept,
                 truth=gt, path=path)
+
+
+def _voxel_admit_times(torch, vm, args) -> dict:
+    """The device map's admission kernel against its plain version on the
+    card, on one map update's inputs (`args` of voxel_admit): the same
+    keys, counts, points and admitted counts, bit for bit; then its device
+    time, median of 7 launches each on a fresh copy of the map, a spin
+    kernel holding the stream while the host issues. The bound: the bytes
+    (the candidates and the group arrays read once, the touched voxels'
+    points held read once, the points admitted and each touched voxel's
+    key, count and admitted count written once) over the HBM rate, or 8
+    operations a distance test over the no-FMA f64 rate, counting every
+    test before a candidate's first rejection as the plain version makes
+    them all (an upper count of the operations)."""
+    def fresh():
+        return [a.clone() if torch.is_tensor(a) else a for a in args]
+
+    want, got = fresh(), fresh()
+    added_want = vm.voxel_admit_reference(*want)
+    added = vm.voxel_admit(*got)
+    torch.cuda.synchronize()
+    check(torch.equal(added, added_want)
+          and all(torch.equal(got[k], want[k]) for k in (7, 8, 9)),
+          "voxel_admit differs from its plain version on the card")
+    times = []
+    for _ in range(7):
+        a = fresh()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1 << 22)
+        start.record()
+        vm.voxel_admit(*a)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    plain_ms = cuda_ms(lambda: vm.voxel_admit_reference(*fresh()), iters=1,
+                       windows=3, warm=1)[0]
+    points, sizes, rows, fresh_from = args[0], args[2], args[4], args[5]
+    live = rows >= 0
+    held = torch.where(live & (rows < fresh_from),
+                       args[9][rows.clamp(min=0)], 0).to(torch.int64)
+    touched = int(live.sum())
+    n_added = int(added_want.sum())
+    nbytes = (points.shape[0] * 24 + touched * (28 + 16)
+              + int(held.sum()) * 24 + n_added * 24)
+    # tests: each candidate of a group against the points held before it
+    k = torch.arange(int(sizes.max()), device=rows.device)
+    before = (held[:, None] + k[None, :]).clamp(max=args[8].shape[1])
+    tests = int(torch.where(k[None, :] < sizes[:, None].to(torch.int64),
+                            before, 0).sum())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = tests * 8 / (PEAK_F64_PER_S / 2) * 1e3
+    ms = float(np.median(times))
+    return dict(ms=ms, lo=min(times), hi=max(times), plain_ms=plain_ms,
+                bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                n=points.shape[0], voxels=touched, held=fresh_from,
+                added=n_added, tests=tests, nbytes=nbytes)
+
+
+def _voxel_admit_line(t) -> str:
+    return (f"voxel_admit (the SLAM run's largest map update: {t['n']} "
+            f"candidates, {t['voxels']} voxels touched, {t['held']} held, "
+            f"{t['added']} points admitted; device time, median of 7 "
+            f"launches on fresh copies): {t['ms']:.4f} ms (min "
+            f"{t['lo']:.4f}, max {t['hi']:.4f}), bound {t['bound_ms']:.5f} "
+            f"ms ({t['bound_by']}; {t['nbytes']} bytes, at most "
+            f"{t['tests']} distance tests), "
+            f"{t['bound_ms'] / t['ms']:.2%} of bound; plain "
+            f"{t['plain_ms']:.3f} ms; bit-equal to the plain version "
+            f"[{CARD}]")
 
 
 def _candidate_pairs(torch, nn, src, map_pts, voxel):

@@ -17,7 +17,8 @@ table of the occupied voxels and the valid points packed voxel by voxel
 (kernels/csrc/icp_nn.cu), and the search reads only the points of the 27
 neighbour voxels; on the CPU the index is just the inputs.
 
-A tensor on the CPU takes the plain PyTorch version `icp_nn_reference`; a
+A tensor on the CPU takes the plain PyTorch version `icp_nn_reference`
+(given a mask, over the valid points alone, their indices mapped back); a
 CUDA tensor launches the hand-written kernels, or the wrapper raises. There
 is no fallback from one to the other.
 
@@ -221,7 +222,16 @@ def icp_nn(src: torch.Tensor, map_pts: Optional[torch.Tensor] = None,
     if device.type == "cpu":
         # chunks of about 4 M pairs bound the host's temporaries
         chunk = max(256, (1 << 22) // max(src.shape[0], 1))
-        return icp_nn_reference(src, map_pts, map_valid, voxel_size, chunk)
+        if map_valid is None:
+            return icp_nn_reference(src, map_pts, None, voxel_size, chunk)
+        # the valid points alone, in their order: the same answer, and no
+        # pairs spent on a sparse mask (DeviceVoxelMap's empty slots)
+        held = torch.nonzero(map_valid).squeeze(1)
+        best_d2, best = icp_nn_reference(src, map_pts[held], None,
+                                         voxel_size, chunk)
+        if len(held):
+            best = torch.where(best_d2 < float("inf"), held[best], 0)
+        return best_d2, best
     if device.type != "cuda":
         raise ValueError(f"icp_nn runs on the CPU or CUDA, got {device}")
     n = src.shape[0]

@@ -25,7 +25,8 @@ def pack_voxel_coords(idx: np.ndarray) -> np.ndarray:
     """Pack (..., 3) int64 voxel coords into one int64 key — 21 bits per
     signed axis, so +-2^20 voxels from the origin (e.g. ~52 km at
     0.05 m voxels); coordinates beyond that wrap silently. Single
-    source of truth for the packing (VoxelHashMap shares it)."""
+    source of truth for the packing (VoxelHashMap shares it, and
+    DeviceVoxelMap, which hands it int64 tensors)."""
     off = np.int64(1 << 20)
     return ((idx[..., 0] + off) << 42) | ((idx[..., 1] + off) << 21) | \
         (idx[..., 2] + off)

@@ -22,9 +22,12 @@ same loop as one device program (`lax.while_loop`).
   `torch.backends.cuda.matmul.allow_tf32 = True` cannot turn them into
   TF32. The 6 x 6 solve runs in float64 (`torch.linalg.solve_ex`, no
   error-check sync); JAX's runs in float32.
-- Map maintenance (voxel capping, distance pruning) stays on the host in
-  VoxelHashMap; its point cloud is copied to the device each frame
-  (up to ~6 MB f32).
+- The local map lives on the device too (slam/device_map.DeviceVoxelMap:
+  KISS-ICP's admission rule in a hand-written kernel, distance pruning as
+  a mask, in float64). The ICP takes its storage as it is: every slot of
+  the held voxels cast to float32, with a mask of the slots that hold a
+  point; nothing is copied to the device a frame but the source points
+  and the initial guess.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 from ..kernels.icp_nn import build_icp_index, icp_nn
 from ..ops.pose import _device_of, _hat
 from ..utils import profiling
+from .device_map import DeviceVoxelMap
 from .kiss_icp import KissConfig, KissICP
 
 
@@ -184,16 +188,20 @@ def register_points_device(src: torch.Tensor,
 
 
 class DeviceICP(KissICP):
-    """KissICP with the registration loop on the device: identical
-    preprocessing, voxelization, adaptive threshold and host-side map
-    maintenance; `register_points_to_map` replaced by
-    register_points_device. Runs on `device`: CUDA when none is named
-    (raises without a GPU). `last_frame` holds the last registration's
-    N, M and iterations."""
+    """KissICP with the registration loop and the local map on the
+    device: identical preprocessing, voxelization and adaptive threshold;
+    `register_points_to_map` replaced by register_points_device, the
+    VoxelHashMap by a DeviceVoxelMap (the same map, bit for bit). Runs on
+    `device`: CUDA when none is named (raises without a GPU). `last_frame`
+    holds the last registration's N, M (the map's points) and
+    iterations."""
 
     def __init__(self, config: Optional[KissConfig] = None, device=None):
         super().__init__(config)
         self.device = _device_of(device)
+        c = self.config
+        self.local_map = DeviceVoxelMap(c.voxel_size, c.max_range,
+                                        c.max_points_per_voxel, self.device)
         self.last_frame: dict = {}
 
     def register_frame(self, frame: np.ndarray,
@@ -207,17 +215,16 @@ class DeviceICP(KissICP):
             self.last_frame = dict(n=source.shape[0], m=0, iterations=0)
         else:
             dev = self.device
+            # the map is on the card already: a cast, no wait
+            with profiling.span("icp.map_upload"):
+                map_t, map_valid = self.local_map.device_points()
             # each pageable copy in, and the pose's read back, waits on
             # the card: a host sync each
-            with profiling.span("icp.map_upload"):
-                map_np = self.local_map.pointcloud().astype(np.float32)
-                map_t = torch.from_numpy(map_np).to(dev)
-                profiling.count("icp.host_syncs")
             stats: dict = {}
             profiling.count("icp.host_syncs", 2)    # source, initial guess
             pose = register_points_device(
                 torch.from_numpy(source.astype(np.float32)).to(dev), None,
-                map_t, None,
+                map_t, map_valid,
                 torch.from_numpy(initial_guess.astype(np.float32)).to(dev),
                 float(np.float32(3.0 * sigma)),
                 float(np.float32(sigma / 3.0)),
@@ -226,7 +233,8 @@ class DeviceICP(KissICP):
                 convergence=self.config.convergence_criterion, stats=stats)
             new_pose = pose.cpu().numpy().astype(np.float64)
             profiling.count("icp.host_syncs")
-            self.last_frame = dict(n=source.shape[0], m=map_np.shape[0],
+            self.last_frame = dict(n=source.shape[0],
+                                   m=self.local_map.num_points,
                                    iterations=stats["iterations"])
             # re-orthonormalize: ~20 f32 GN steps leave the rotation a
             # hair off SO(3), which would accumulate over a trajectory

@@ -104,6 +104,21 @@ _SHIFTS_27 = np.array(
 from ..ops.downsample import pack_voxel_coords as _enc_vox  # noqa: E402
 
 
+def _born_groups(keys: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Of points given by their packed voxel keys (P,): the voxels' keys in
+    the order of their first point (V,), each point's voxel in that order
+    (P,) and each voxel's point count (V,)."""
+    keys = np.asarray(keys, dtype=np.int64).reshape(-1)
+    uniq, first, inverse = np.unique(keys, return_index=True,
+                                     return_inverse=True)
+    born = np.argsort(first, kind="stable")
+    rank = np.empty_like(born)
+    rank[born] = np.arange(len(born))
+    row = rank[inverse.reshape(-1)]
+    return uniq[born], row, np.bincount(row, minlength=len(born))
+
+
 class VoxelHashMap:
     """Local map: voxel hash of up-to-N points per cell with
     min-distance admission, adjacent-voxel nearest neighbors, pruned by
@@ -120,6 +135,9 @@ class VoxelHashMap:
         # map_resolution = sqrt(voxel_size^2 / max_points_per_voxel))
         self._map_resolution2 = voxel_size * voxel_size \
             / max_points_per_voxel
+        self._init_storage()
+
+    def _init_storage(self) -> None:
         self._voxels: Dict[int, np.ndarray] = {}  # enc key -> (k, 3)
         self._arrays: Optional[Tuple[np.ndarray, np.ndarray]] = None
 
@@ -135,12 +153,35 @@ class VoxelHashMap:
             return np.zeros((0, 3))
         return np.concatenate(list(self._voxels.values()), axis=0)
 
+    def load(self, keys: np.ndarray, points: np.ndarray) -> None:
+        """Replace the map by the points (P, 3) with each point's packed
+        voxel key (P,) int64: voxels in the order of their first point,
+        points in their order within a voxel."""
+        vkeys, row, counts = _born_groups(keys)
+        order = np.argsort(row, kind="stable")
+        self.clear()
+        for key, pts in zip(vkeys.tolist(), np.split(
+                np.asarray(points, np.float64)[order],
+                np.cumsum(counts)[:-1])):
+            self._voxels[key] = pts
+
     def add_points(self, points: np.ndarray) -> None:
         """(ref: VoxelHashMap::AddPoints): per point, in order — skip if
         the cell is full or any point already in the cell (including ones
-        admitted earlier in this call) lies within map_resolution."""
+        admitted earlier in this call) lies within map_resolution. Voxels
+        keep the order they were first admitted in: a new voxel with more
+        than one candidate before a new voxel with one, each in key
+        order."""
         if points.size == 0:
             return
+        self._add(points)
+
+    def remove_far_points(self, origin: np.ndarray) -> None:
+        """(ref: VoxelHashMap::RemovePointsFarFromLocation): a cell dies
+        when its FIRST point is >= max_distance from the origin."""
+        self._remove_far(origin)
+
+    def _add(self, points: np.ndarray) -> None:
         cap = self.max_points_per_voxel
         res2 = self._map_resolution2
         keys = _enc_vox(np.floor(points / self.voxel_size).astype(np.int64))
@@ -184,9 +225,7 @@ class VoxelHashMap:
                 voxels[key] = block[r:r + 1]
         self._arrays = None
 
-    def remove_far_points(self, origin: np.ndarray) -> None:
-        """(ref: VoxelHashMap::RemovePointsFarFromLocation): a cell dies
-        when its FIRST point is >= max_distance from the origin."""
+    def _remove_far(self, origin: np.ndarray) -> None:
         md2 = self.max_distance * self.max_distance
         dead = [k for k, pts in self._voxels.items()
                 if np.sum((pts[0] - origin) ** 2) >= md2]

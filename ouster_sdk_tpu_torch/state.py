@@ -155,11 +155,7 @@ def kiss_icp_from_numpy(config: KissConfig, points: np.ndarray,
     if keys.shape[0] != points.shape[0]:
         raise ValueError(f"{points.shape[0]} points but {keys.shape[0]} "
                          f"keys")
-    voxels = icp.local_map._voxels
-    uniq, first, inverse = np.unique(keys, return_index=True,
-                                     return_inverse=True)
-    for u in np.argsort(first, kind="stable"):
-        voxels[int(uniq[u])] = points[inverse == u].copy()
+    icp.local_map.load(keys, points)
     icp.adaptive_threshold._model_sse = float(model_sse)
     icp.adaptive_threshold._num_samples = int(num_samples)
     icp._frame_count = int(frame_count)

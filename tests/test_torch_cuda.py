@@ -1,6 +1,6 @@
 """The port's CUDA kernels (kernels/csrc/planar_project.cu,
-packet_project.cu, lutfree_project.cu and icp_nn.cu) against their plain
-PyTorch versions on the card. Needs an NVIDIA GPU and skips without one.
+packet_project.cu, lutfree_project.cu, icp_nn.cu and voxel_map.cu) against
+their plain PyTorch versions on the card. Needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
 PyTorch is installed:
@@ -28,6 +28,9 @@ equal the CPU's, project_packed_batched / project_bp64_batched launch
 planar_project once a call with XYZ bit-equal to the planar path (and with
 poses to the CPU's plain route); ShardedScanPipeline.project on a mesh of
 the one card launches once a shard, bit-equal to project_planar. SLAM:
+the device voxel map's admission kernel (kernels/csrc/voxel_map.cu) gives
+the bits of voxel_admit_reference, and the map on the card the host
+VoxelHashMap's;
 icp_nn's kernels (a voxel index once a map, one search a call) give the
 indices and the bits of icp_nn_reference, on the card and on the CPU, on
 dense, tied, masked, empty and saturated inputs too; register_points_device on the card is within 1e-4 m
@@ -1113,6 +1116,53 @@ def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
             assert nn.launches["icp_nn"] == iters > 0
     assert np.abs(poses["device"][:, :3, 3]
                   - poses["host"][:, :3, 3]).max() <= 0.05
+
+
+@pytest.mark.cuda
+def test_voxel_admit_matches_plain_on_the_card(cuda, monkeypatch):
+    """The device voxel map's admission kernel against its plain version
+    on the inputs of a run of map updates (held, full and fresh voxels,
+    candidates inside the admission radius): the same keys, counts, points
+    and admitted counts, bit for bit; and the map on the card equals the
+    host VoxelHashMap after every update."""
+    from ouster_sdk_tpu_torch.kernels import voxel_map as vm
+    from ouster_sdk_tpu_torch.slam import device_map
+    from ouster_sdk_tpu_torch.slam.kiss_icp import VoxelHashMap, se3_exp
+
+    calls = []
+
+    def kept(*args):
+        calls.append([a.clone() if torch.is_tensor(a) else a for a in args])
+        return vm.voxel_admit(*args)
+
+    monkeypatch.setattr(device_map, "voxel_admit", kept)
+    rng = np.random.default_rng(5)
+    host = VoxelHashMap(1.0, 30.0, 5)
+    maps = [device_map.DeviceVoxelMap(1.0, 30.0, 5, d)
+            for d in (torch.device("cpu"), cuda)]
+    vm.reset_launches()
+    for _ in range(6):
+        p = rng.uniform(-15, 15, (4000, 3))
+        p = np.concatenate([p, p[:800] + rng.normal(0, 0.2, (800, 3)),
+                            np.repeat(p[:50], 30, axis=0)
+                            + rng.uniform(-0.5, 0.5, (1500, 3))])
+        pose = se3_exp(rng.normal(0, 0.5, 6))
+        host.update(p, pose)
+        for m in maps:
+            m.update(p, pose)
+            assert list(m._voxels) == list(host._voxels)
+            assert np.array_equal(m.pointcloud(), host.pointcloud())
+    assert vm.launches["voxel_admit"] == 6
+    assert max(len(v) for v in host._voxels.values()) == 5
+    for args in calls[::2]:                    # the CPU map's calls
+        want = [a.clone() if torch.is_tensor(a) else a for a in args]
+        got = [a.to(cuda) if torch.is_tensor(a) else a for a in args]
+        added_want = vm.voxel_admit_reference(*want)
+        added_got = vm.voxel_admit(*got)
+        torch.cuda.synchronize()
+        assert torch.equal(added_got.cpu(), added_want)
+        for k in (7, 8, 9):                    # keys, map points, counts
+            assert torch.equal(got[k].cpu(), want[k])
 
 
 @pytest.mark.cuda

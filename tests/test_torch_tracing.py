@@ -216,7 +216,8 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
         slam = tracer.snapshot()
     assert REPLAY <= names(replay)
     assert ENGINE | {"engine.d2h_copies"} <= names(engine)
-    assert SLAM | {"icp.gn_iterations", "icp.host_syncs"} <= names(slam)
+    assert SLAM | {"icp.gn_iterations", "icp.host_syncs", "map.host_syncs",
+                   "map.new_voxels"} <= names(slam)
     main = threading.get_native_id()
     staged = {s.thread for s in replay.spans
               if s.name == "frames.stage_chunk"}
@@ -226,11 +227,16 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
     assert keys and all(isinstance(k, int) for k in keys)
     assert all(s.key is not None for s in engine.spans
                if s.name in ("engine.decode", "engine.materialize"))
-    # every registration: its iterations, and a sync each, plus four
+    # every registration: its iterations, and a sync each, plus three (the
+    # source and the initial guess copied in, the pose read back); the map
+    # waits three times an update
     its = sum(c.n for c in slam.counts if c.name == "icp.gn_iterations")
     syncs = sum(c.n for c in slam.counts if c.name == "icp.host_syncs")
     loops = sum(s.name == "icp.gn_loop" for s in slam.spans)
-    assert its > 0 and syncs == its + 4 * loops
+    assert its > 0 and syncs == its + 3 * loops
+    updates = sum(s.name == "map.remove_far" for s in slam.spans)
+    assert sum(c.n for c in slam.counts
+               if c.name == "map.host_syncs") == 3 * updates > 0
     assert set(eng._kiss.last_frame) == {"n", "m", "iterations"}
     # spans of one thread nest: a child lies inside its parent
     by_id = {s.id: s for s in slam.spans}
