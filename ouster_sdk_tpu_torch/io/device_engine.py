@@ -1056,7 +1056,9 @@ class OsfDeviceProjector:
     def attach(self, entries: List[Tuple[int, "LidarScan"]]) -> None:
         """Project a window of (sensor_idx, scan) pairs: one device
         dispatch per sensor present and LUT variant (returns ride the
-        batch axis), XYZ caches attached in place."""
+        batch axis), XYZ caches attached in place. Traced as one
+        `osf.project` span a call; each dispatch counts its images under
+        `osf.images_projected`."""
         by_sensor: Dict[int, List[Tuple["LidarScan", int, np.ndarray]]] = {}
         for si, ls in entries:
             if ls is None or not ls.has_field("RANGE"):
@@ -1072,22 +1074,28 @@ class OsfDeviceProjector:
             if ls.has_field("RANGE2"):
                 by_sensor[si].append(
                     (ls, 1, np.asarray(ls.field("RANGE2"), np.uint32)))
-        for si, items in by_sensor.items():
-            variants, identity_ext, luts = self._sensor_ctx(si)
-            rngs = words_tensor(np.stack([r for _, _, r in items]),
-                                self.device)             # (B, h, w)
-            out = [project_ranges(rngs, L).cpu().numpy()
-                   for L in luts]                        # V x (B, 3, h, w)
-            stats["batches"] += 1
-            stats["osf_batches"] += 1
-            for k, (ls, ret, r) in enumerate(items):
-                for v, use_ext in enumerate(variants):
-                    xyz = np.moveaxis(out[v][k], 0, -1)   # (h, w, 3)
-                    ls.attach_xyz_cache(ret, use_ext, xyz, r)
-                    if identity_ext:
-                        # identity extrinsic: the sensor frame IS the
-                        # extrinsics frame, serve both keys
-                        ls.attach_xyz_cache(ret, True, xyz, r)
+        if not by_sensor:
+            return
+        first = next(iter(by_sensor.values()))[0][0]
+        with profiling.span("osf.project", first.frame_id):
+            for si, items in by_sensor.items():
+                variants, identity_ext, luts = self._sensor_ctx(si)
+                rngs = words_tensor(np.stack([r for _, _, r in items]),
+                                    self.device)         # (B, h, w)
+                out = []                                 # V x (B, 3, h, w)
+                for L in luts:
+                    out.append(project_ranges(rngs, L).cpu().numpy())
+                    profiling.count("osf.images_projected", len(items))
+                stats["batches"] += 1
+                stats["osf_batches"] += 1
+                for k, (ls, ret, r) in enumerate(items):
+                    for v, use_ext in enumerate(variants):
+                        xyz = np.moveaxis(out[v][k], 0, -1)   # (h, w, 3)
+                        ls.attach_xyz_cache(ret, use_ext, xyz, r)
+                        if identity_ext:
+                            # identity extrinsic: the sensor frame IS the
+                            # extrinsics frame, serve both keys
+                            ls.attach_xyz_cache(ret, True, xyz, r)
 
     def wrap(self, it: Iterator[Tuple[int, "LidarScan"]]
              ) -> Iterator[Tuple[int, "LidarScan"]]:

@@ -42,6 +42,7 @@ from ..core.types import SDK_NAME, SensorInfo
 from ..ops.destagger import destagger as _destagger, stagger as _stagger
 from ..utils import flatbuf as fb
 from ..utils import png as png_codec
+from ..utils import profiling
 from ..utils import zpng as zpng_codec
 from .sources import (
     LidarScanSet,
@@ -155,8 +156,9 @@ class MessageRef:
         if not self.is_lidar_scan():
             return None
         info = self.reader.sensor_info[self.sensor_idx]
-        return decode_lidar_scan_msg(self.buffer, info, fields,
-                                     self.reader.error_handler)
+        with profiling.span("osf.decode"):
+            return decode_lidar_scan_msg(self.buffer, info, fields,
+                                         self.reader.error_handler)
 
 
 # ---------------------------------------------------------------------------
@@ -314,7 +316,8 @@ def decode_lidar_scan_msg(buf: bytes, info: SensorInfo,
     """LidarScanMsg flatbuffer -> LidarScan
     (ref: stream_lidar_scan.cpp restore_lidar_scan). Undecodable or
     unsupported fields are skipped through ``error_handler`` as WARNINGs
-    (ref: fb_common.cpp:249-331 fb_restore_fields)."""
+    (ref: fb_common.cpp:249-331 fb_restore_fields). Each channel decoded
+    counts one `osf.fields_decoded`."""
     handler = error_handler or default_error_handler
     t = fb.root_auto(buf)
     h = info.format.pixels_per_column
@@ -344,6 +347,7 @@ def decode_lidar_scan_msg(buf: bytes, info: SensorInfo,
             handler(Severity.WARNING,
                     f"Skipping field '{name}': {e}")
             continue
+        profiling.count("osf.fields_decoded")
         if zpng_codec.is_zpng(data):
             # zPNG channels are staggered on the wire (see encode)
             arr = img.view(dtype).astype(dtype, copy=False)

@@ -19,7 +19,7 @@ from typing import Tuple
 
 import numpy as np
 
-from . import native
+from . import native, profiling
 
 _SIG = b"\x89PNG\r\n\x1a\n"
 
@@ -144,7 +144,8 @@ def decode(data: bytes) -> Tuple[np.ndarray, int, int]:
     bytes_per_sample = depth // 8
     bpp = ch * bytes_per_sample
     stride = width * bpp
-    raw = zlib.decompress(bytes(idat))
+    with profiling.span("png.inflate"):
+        raw = zlib.decompress(bytes(idat))
     arr = np.frombuffer(raw, dtype=np.uint8)
     if arr.size != height * (stride + 1):
         raise ValueError("bad PNG payload size")
