@@ -3869,13 +3869,13 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         return np.stack(poses), frames, secs
 
     # the layers of a device run: host-clock timers around the host steps,
-    # CUDA events around each icp_nn launch (no added sync)
+    # CUDA events around each index build (no added sync)
     layer_fns = (("gather", se.SlamEngine, "_gather_frame"),
                  ("preprocess", ki.KissICP, "preprocess"),
                  ("voxelize", ki.KissICP, "voxelize"),
                  ("register_points_device", di, "register_points_device"),
                  ("map update", ki.VoxelHashMap, "update"))
-    events, index_events, largest, gathered = [], [], {}, []
+    index_events, regs, gathered = [], [], []
 
     def timed(fn, into):
         def call(*args, **kwargs):
@@ -3888,19 +3888,17 @@ def _run_slam(torch, port, dev, tmp) -> dict:
             return out
         return call
 
-    searches = {}      # id(index) -> (index, the queries of its searches)
+    def kept_register(src, src_valid, map_pts, map_valid, init, *args,
+                      **kwargs):
+        # each registration's inputs, for the device time of its searches
+        # and the largest one's Gauss-Newton split (the search is captured
+        # in a CUDA graph: its queries are not seen from here)
+        regs.append((src, src_valid, map_pts, map_valid, init, args,
+                     dict(kwargs)))
+        return di_register(src, src_valid, map_pts, map_valid, init, *args,
+                           **kwargs)
 
-    def timed_nn(src, *args, index=None, **kwargs):
-        out = timed(nn.icp_nn, events)(src, *args, index=index, **kwargs)
-        if index is not None:
-            searches.setdefault(id(index), (index, []))[1].append(
-                src.clone())
-        map_pts = index.map_pts if index is not None else args[0]
-        if map_pts.shape[0] > largest.get("m", -1):
-            largest.update(m=map_pts.shape[0], src=src.clone(),
-                           map=map_pts, voxel=index.voxel_size
-                           if index is not None else args[2])
-        return out
+    di_register = di.register_points_device
 
     gather = se.SlamEngine._gather_frame
 
@@ -3940,6 +3938,9 @@ def _run_slam(torch, port, dev, tmp) -> dict:
 
     runs = {"device": [], "host": []}
     kept = []
+    # the first capture of this thread runs one eager step (one more icp_nn
+    # launch) to make the libraries' lazy state
+    warm = int(torch.cuda.current_device() not in di._CAPTURE.by_device)
     nn.reset_launches()
     vm.reset_launches()
     dm.voxel_admit = kept_admit
@@ -3957,7 +3958,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     counters = [count_calls(m, n) for _, m, n in layer_fns]
     try:
         torch.backends.cuda.matmul.allow_tf32 = True
-        di.icp_nn = timed_nn
+        di.register_points_device = kept_register
         di.build_icp_index = timed(nn.build_icp_index, index_events)
         se.SlamEngine._gather_frame = kept_gather
         for c in counters:
@@ -3966,8 +3967,10 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         # the program's tracer on: its map upload spans and its count of
         # host syncs, held to the sync debug mode's below
         profiling.clear()
+        nn.reset_launches()
         with profiling.tracing(True):
             tf32_poses, _, secs = drive("device")
+        tf32_launches = nn.launches["icp_nn"]
         traced = profiling.snapshot()
         profiling.clear()
     finally:
@@ -3975,7 +3978,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         for c in counters:
             c.__exit__()
         se.SlamEngine._gather_frame = gather
-        di.icp_nn = nn.icp_nn
+        di.register_points_device = di_register
         di.build_icp_index = nn.build_icp_index
         torch.backends.cuda.matmul.allow_tf32 = tf32
     torch.cuda.synchronize()
@@ -3984,9 +3987,24 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     runs["host"].append(secs)
 
     check(launches > 0, "the SLAM path never launched icp_nn")
-    check(launches == sum(f["iterations"] for f in frames),
-          f"icp_nn launches {launches} != GN iterations")
     registrations = sum(1 for f in frames if f["m"] > 0)
+    iterations = sum(f["iterations"] for f in frames)
+    # the search is launched once a registration, at its graph's capture;
+    # every iteration is a replay
+    check(launches == registrations + warm,
+          f"icp_nn launches {launches} != registrations {registrations} "
+          f"+ {warm} warm-up step")
+    traced_n = {name: sum(c.n for c in traced.counts if c.name == name)
+                for name in ("icp.graph_captures", "icp.graph_replays",
+                             "icp.gn_iterations")}
+    captures, replays = (traced_n["icp.graph_captures"],
+                         traced_n["icp.graph_replays"])
+    check(tf32_launches == captures == registrations,
+          f"traced run: icp_nn launches {tf32_launches}, graph captures "
+          f"{captures}, registrations {registrations}")
+    check(replays == traced_n["icp.gn_iterations"] == iterations,
+          f"traced run: graph replays {replays}, GN iterations "
+          f"{traced_n['icp.gn_iterations']} (first run {iterations})")
     check(index_launches == registrations,
           f"icp_nn index builds {index_launches} != registrations "
           f"{registrations}")
@@ -4019,7 +4037,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
             if k else 0.0
         apart = np.linalg.norm(dev_poses[k, :3, 3] - host_poses[k, :3, 3])
         print(f"slam frame {k}: N {f['n']} M {f['m']} iterations "
-              f"{f['iterations']} icp_nn launches {f['iterations']} syncs "
+              f"{f['iterations']} graph replays {f['iterations']} syncs "
               f"{syncs[k]}; delta error device {d_err:.4f} host "
               f"{h_err:.4f} m; device - host {apart:.5f} m; absolute error "
               f"device "
@@ -4032,8 +4050,10 @@ def _run_slam(torch, port, dev, tmp) -> dict:
                                  axis=1).max())
     check(worst <= 0.05, f"device trajectory {worst} m from the host one")
     print(f"slam: device trajectory within {worst:.5f} m of the host one; "
-          f"TF32 run bit-equal; {launches} icp_nn launches, "
+          f"TF32 run bit-equal; {launches} icp_nn launches (one a "
+          f"registration, at its capture, + {warm} warm-up step), "
           f"{index_launches} index builds ({registrations} registrations), "
+          f"{replays} graph replays ({iterations} iterations), "
           f"{sum(syncs)} host syncs in "
           f"{SLAM_FRAMES} frames")
     for name, vals in runs.items():
@@ -4044,38 +4064,60 @@ def _run_slam(torch, port, dev, tmp) -> dict:
               f"torch's sync debug mode and the program's tracer on) "
               f"[{CARD}]")
         FPS[f"slam {name}"] = SLAM_FRAMES / vals[0]
-    nn_ms = sum(s.elapsed_time(e) for s, e in events)
     index_ms = sum(s.elapsed_time(e) for s, e in index_events)
     reg = counters[[n for n, _, _ in layer_fns].index(
         "register_points_device")]
-    upload = sum(s.end_ns - s.start_ns for s in traced.spans
-                 if s.name == "icp.map_upload") * 1e-6
+
+    def span_ms(name):
+        return sum(s.end_ns - s.start_ns for s in traced.spans
+                   if s.name == name) * 1e-6
+
+    upload = span_ms("icp.map_upload")
     for (name, _, _), c in zip(layer_fns, counters):
         print(f"slam layer {name}: {c.seconds * 1e3 / SLAM_FRAMES:.3f} "
               f"ms/frame ({c.n} calls)")
     print(f"slam layer map upload (pointcloud + copy, the tracer's "
           f"icp.map_upload spans, second device run): "
           f"{upload / SLAM_FRAMES:.3f} ms/frame")
-    # the same searches and builds replayed with the host's issue taken out:
-    # the card's own time a frame
+    # each registration's searches again, eagerly (the graph hides its
+    # queries), then the builds and searches replayed with the host's
+    # issue taken out: the card's own time a frame
+    searches = []
+    for src, sv, mp, mv, init, args, kw in regs:
+        cur, T_icp, stop, fx = di._setup(
+            src, sv, mp, mv, init.to(torch.float32), args[0], args[1],
+            kw["voxel_size"], kw["convergence"])
+        qs = []
+        for _ in range(kw["max_iters"]):
+            qs.append(cur.clone())
+            di._gn_step(cur, T_icp, stop, fx)
+            if bool(stop):
+                break
+        searches.append((fx.index, qs))
+    check(sum(len(q) for _, q in searches) == replays,
+          "the eager steps stopped elsewhere than the graphs' replays")
     replay_ms = sum(device_ms(
         lambda ix=ix, qs=qs: [nn.build_icp_index(ix.map_pts, ix.map_valid,
                                                  ix.voxel_size)]
         + [nn.icp_nn(q, index=ix) for q in qs], iters=1, windows=3,
-        warm=1)[0] for ix, qs in searches.values())
+        warm=1)[0] for ix, qs in searches)
     print(f"slam layer icp_nn, device time (the run's {len(searches)} index "
-          f"builds and {sum(len(q) for _, q in searches.values())} searches "
+          f"builds and {sum(len(q) for _, q in searches)} searches "
           f"replayed, device_ms): {replay_ms / SLAM_FRAMES:.4f} ms/frame "
           f"[{CARD}]")
-    print(f"slam layer icp_nn (CUDA events around each call, host issue "
-          f"included): search "
-          f"{nn_ms / SLAM_FRAMES:.4f} ms/frame over {len(events)} launches, "
-          f"index {index_ms / SLAM_FRAMES:.4f} ms/frame over "
-          f"{len(index_events)} builds, together "
-          f"{(nn_ms + index_ms) / SLAM_FRAMES:.4f} ms/frame; GN step and "
-          f"syncs (register_points_device - icp_nn - index): "
-          f"{(reg.seconds * 1e3 - nn_ms - index_ms) / SLAM_FRAMES:.3f} "
-          f"ms/frame")
+    print(f"slam layer icp_nn index (CUDA events around each call, host "
+          f"issue included): {index_ms / SLAM_FRAMES:.4f} ms/frame over "
+          f"{len(index_events)} builds; GN loop (register_points_device - "
+          f"index): {(reg.seconds * 1e3 - index_ms) / SLAM_FRAMES:.3f} "
+          f"ms/frame, of it the tracer's icp.gn_loop "
+          f"{span_ms('icp.gn_loop') / SLAM_FRAMES:.3f} and icp.graph_capture "
+          f"{span_ms('icp.graph_capture') / SLAM_FRAMES:.3f} ms/frame "
+          f"({captures} captures, {replays} replays) [{CARD}]")
+    big = max(regs, key=lambda r: r[2].shape[0])
+    src, _, mp, _, init, _, kw = big
+    largest = dict(m=mp.shape[0], src=di._transform(
+        init.to(torch.float32), src.to(torch.float32)), map=mp,
+        voxel=kw["voxel_size"], reg=big)
     print(_voxel_admit_line(_voxel_admit_times(torch, vm, admit["args"])))
     return dict(launches=launches, index_launches=index_launches,
                 largest=largest, gathered=gathered, frames=frames,
@@ -4248,6 +4290,71 @@ def _icp_nn_line(n, m, t) -> str:
             f"candidate) [{CARD}]")
 
 
+def icp_world(n: int = 4000, seed: int = 0) -> np.ndarray:
+    """Two walls, a floor and clutter (the JAX package's SLAM test scene)."""
+    rng = np.random.default_rng(seed)
+    q = n // 4
+    return np.concatenate([
+        np.stack([rng.uniform(5, 30, q), 8.0 + rng.normal(0, 0.01, q),
+                  rng.uniform(0, 4, q)], axis=1),
+        np.stack([25.0 + rng.normal(0, 0.01, q), rng.uniform(-10, 8, q),
+                  rng.uniform(0, 4, q)], axis=1),
+        np.stack([rng.uniform(5, 30, q), rng.uniform(-10, 8, q),
+                  rng.normal(0, 0.01, q)], axis=1),
+        rng.uniform([5, -10, 0], [30, 8, 4], size=(q, 3))])
+
+
+GN_CASES = ("sizes", "first", "few", "max_iters", "masks")
+
+
+def gn_cases(case: str):
+    """The registrations of a Gauss-Newton case (GN_CASES), the inputs on
+    which register_points_device is held to its step run eagerly (on the
+    card: the CUDA graph's replays): (src, src_valid, map, map_valid, init,
+    max_corr_dist, kernel_scale, max_iters) as numpy, on icp_world's scene
+    at voxel 1.0."""
+    from ouster_sdk_tpu_torch.slam.kiss_icp import VoxelHashMap, se3_exp
+
+    rng = np.random.default_rng(7)
+    world = icp_world(6000, seed=3)
+    T = se3_exp(np.array([0.3, -0.2, 0.1, 0.02, -0.01, 0.03]))
+    eye = np.eye(4, dtype=np.float32)
+
+    def map_of(pts):
+        vm = VoxelHashMap(1.0, 200.0, 20)
+        vm.add_points(pts)
+        return vm.pointcloud().astype(np.float32)
+
+    def seen(pts):
+        return ((pts - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+
+    if case == "sizes":
+        # three N and M: the pool reused, the graph captured anew each time
+        return [(seen(world[rng.choice(6000, n, replace=False)]), None,
+                 map_of(world[:m]), None, eye, 1.0, 0.3, 100)
+                for n, m in ((700, 2500), (3000, 6000), (1500, 4000))]
+    mp = map_of(world)
+    if case == "first":
+        # the map itself, where it lies: dx = 0, stop after one iteration
+        return [(mp.copy(), None, mp, None, eye, 1.0, 0.3, 100)]
+    if case == "few":
+        # five of the points within reach of the map: too few, stop at once
+        far = mp[:200] + np.float32(50.0)
+        far[:5] = mp[:5] + np.float32(0.01)
+        return [(far, None, mp, None, eye, 1.0, 0.3, 100)]
+    if case == "max_iters":
+        return [(seen(world), None, mp, None, eye, 3.0, 1.0, 3)]
+    assert case == "masks"
+    src = seen(world)
+    src_valid = rng.random(len(src)) > 0.2
+    src[~src_valid] = 1e3                 # rows a caller padded
+    map_valid = rng.random(len(mp)) > 0.1
+    mp_pad = mp.copy()
+    # masked slots hold points 0.3 m off: counted, they would pair
+    mp_pad[~map_valid] += np.float32(0.3)
+    return [(src, src_valid, mp_pad, map_valid, eye, 1.0, 0.3, 100)]
+
+
 def icp_nn_cases(seed: int = 0):
     """Inputs (name, src, map_pts, map_valid, voxel) at which icp_nn must
     equal icp_nn_reference bit for bit: dense cells (500 points in one
@@ -4320,42 +4427,71 @@ def _icp_nn_cases_on_card(torch, nn, dev) -> str:
     return "; ".join(held)
 
 
-def _gn_split(torch, src, map_pts, voxel) -> None:
+def _gn_split(torch, big) -> None:
     """What one Gauss-Newton iteration of register_points_device costs on
-    the card beside its icp_nn launch: the iteration whole (host clock,
-    with its one sync; best of 5), and its parts, each the larger of its
-    device time and its host issue time (cuda_ms)."""
+    the card at the SLAM run's largest registration (`big["reg"]`, its
+    inputs): the iteration replayed from its CUDA graph and run eagerly
+    (_gn_step), each with its one sync (host clock, best of 5, from the
+    same buffers), bit-equal; the capture (best of 5); and the eager step's
+    parts, each the larger of its device time and its host issue time
+    (cuda_ms)."""
     from ouster_sdk_tpu_torch.slam import device_icp as di
 
-    dev = src.device
-    eye = torch.eye(4, device=dev)
+    src, sv, mp, mv, init, args, kw = big["reg"]
+    cur, T_icp, stop, fx = di._setup(
+        src, sv, mp, mv, init.to(torch.float32), args[0], args[1],
+        kw["voxel_size"], kw["convergence"])
+    start = (cur.clone(), T_icp.clone())
 
-    def one():
-        di.register_points_device(src, None, map_pts, None, eye, 3.0, 1.0,
-                                  voxel_size=voxel, max_iters=1)
-        torch.cuda.synchronize()
+    def step():
+        di._gn_step(cur, T_icp, stop, fx)
 
-    it_ms = min(_host_s(one) for _ in range(5)) * 1e3
+    def timed(fn) -> float:
+        times = []
+        for _ in range(5):
+            cur.copy_(start[0])
+            T_icp.copy_(start[1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            bool(stop)
+            times.append(time.perf_counter() - t0)
+        return min(times) * 1e3
+
+    def capture():
+        return di._capture(cur, T_icp, stop, fx)
+
+    eager_ms = timed(step)
+    eager = (cur.clone(), T_icp.clone(), bool(stop))
+    cap_ms = min(_host_s(capture) for _ in range(5)) * 1e3
+    graph = capture()           # the last capture: its pool's memory holds
+    replay_ms = timed(graph.replay)
+    check(torch.equal(cur.view(torch.int32), eager[0].view(torch.int32))
+          and torch.equal(T_icp.view(torch.int32),
+                          eager[1].view(torch.int32))
+          and bool(stop) == eager[2],
+          "a replayed Gauss-Newton iteration differs from the eager step")
     n = src.shape[0]
-    r = torch.randn(n, 3, device=dev) * 0.1
-    w = torch.rand(n, device=dev)
+    r = torch.randn(n, 3, device=src.device) * 0.1
+    w = torch.rand(n, device=src.device)
     corr = w > 0.1
-    A = torch.eye(6, dtype=torch.float64, device=dev) * 4 + 0.1
-    b = torch.ones(6, dtype=torch.float64, device=dev)
-    dx = torch.full((6,), 1e-3, device=dev)
-    index = di.build_icp_index(map_pts, None, voxel)
+    A = torch.eye(6, dtype=torch.float64, device=src.device) * 4 + 0.1
+    b = torch.ones(6, dtype=torch.float64, device=src.device)
+    dx = torch.full((6,), 1e-3, device=src.device)
     parts = {
-        "icp_nn search (prebuilt index)": lambda: di.icp_nn(src,
-                                                            index=index),
-        "icp_nn index build": lambda: di.build_icp_index(map_pts, None,
-                                                         voxel),
+        "icp_nn search (prebuilt index)": lambda: di.icp_nn(
+            cur, index=fx.index),
+        "icp_nn index build": lambda: di.build_icp_index(
+            mp, mv, kw["voxel_size"]),
         "normal terms (stack + one sum)": lambda: di._normal_terms(
-            src, r, w, corr),
+            cur, r, w, corr),
         "6x6 solve_ex (float64)": lambda: torch.linalg.solve_ex(A, b),
         "_se3_exp_kiss": lambda: di._se3_exp_kiss(dx),
     }
-    print(f"slam Gauss-Newton iteration at N={n} M={map_pts.shape[0]}: "
-          f"{it_ms:.3f} ms whole (one sync) [{CARD}]; parts: " + "; ".join(
+    print(f"slam Gauss-Newton iteration at N={n} M={mp.shape[0]}: "
+          f"replayed {replay_ms:.3f} ms, eager {eager_ms:.3f} ms (each with "
+          f"its one sync, best of 5; bit-equal), capture {cap_ms:.3f} ms "
+          f"(best of 5) [{CARD}]; parts: " + "; ".join(
               f"{name} {cuda_ms(fn, iters=20, windows=3)[0]:.4f} ms"
               for name, fn in parts.items()))
 
@@ -4374,7 +4510,7 @@ def _run_icp_nn(torch, port, dev, slam) -> dict:
     at = _icp_nn_times(torch, nn, big["src"], big["map"], big["voxel"])
     n, m = big["src"].shape[0], big["m"]
     print(_icp_nn_line(n, m, at) + " (the SLAM run's largest map)")
-    _gn_split(torch, big["src"], big["map"], big["voxel"])
+    _gn_split(torch, big)
     # the large case: the yard's world points as the map
     world = np.concatenate([p @ P[:3, :3].T + P[:3, 3]
                             for p, P in slam["gathered"]])

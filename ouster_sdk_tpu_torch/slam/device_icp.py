@@ -2,14 +2,21 @@
 
 The reference registers scans with a host voxel-hash ICP
 (ref: ouster_mapping thirdparty kiss-icp Registration.cpp). Here the
-Gauss-Newton loop runs on the device, one iteration after another from
-Python: the nearest-neighbour search (kernels/icp_nn.py, hand-written CUDA
-kernels on the card: the map's voxel index built once a registration, one
-search an iteration), the Geman-McClure-weighted normal equations, the
-6 x 6 solve, the SE(3) update; the host reads one stop flag an iteration.
-It is the counterpart of the JAX package's slam/jax_icp.py, which runs the
-same loop as one device program (`lax.while_loop`).
+Gauss-Newton loop runs on the device. An iteration (`_gn_step`) is the
+nearest-neighbour search (kernels/icp_nn.py, hand-written CUDA kernels on
+the card: the map's voxel index built once a registration, one search an
+iteration), the Geman-McClure-weighted normal equations, the 6 x 6 solve,
+the SE(3) update, about 128 small launches on buffers it updates in place.
+On the card it is captured once a registration as a CUDA graph and
+replayed, one launch an iteration, until the stop flag is set; on the CPU
+it runs eagerly. The host reads one stop flag an iteration. It is the
+counterpart of the JAX package's slam/jax_icp.py, which runs the same loop
+as one device program (`lax.while_loop`).
 
+- The graph replays the kernels the eager step launches, in the same
+  order, on the same buffers: the pose is the eager loop's, bit for bit.
+  Shapes change every registration (the map grows), so the capture is
+  once a registration; a thread's captures share one memory pool.
 - The nearest neighbour is restricted to the query's 27-voxel
   neighbourhood of the map's voxel size, the host VoxelHashMap's
   GetClosestNeighbor semantics; the distances never leave the kernel's
@@ -32,12 +39,13 @@ same loop as one device program (`lax.while_loop`).
 
 from __future__ import annotations
 
-from typing import Optional
+import threading
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..kernels.icp_nn import build_icp_index, icp_nn
+from ..kernels.icp_nn import IcpIndex, build_icp_index, icp_nn
 from ..ops.pose import _device_of, _hat
 from ..utils import profiling
 from .device_map import DeviceVoxelMap
@@ -115,6 +123,128 @@ def _jtj(sums: torch.Tensor, zero: torch.Tensor) -> torch.Tensor:
                         ny, x, z, b[4], b[5], b[2]]).view(6, 6)
 
 
+class _Fixed(NamedTuple):
+    """What a registration's Gauss-Newton iterations read and never
+    write: the map's index and points, the source's mask, the constants
+    (on the device) and the stop rule's threshold."""
+
+    index: IcpIndex
+    map_pts: torch.Tensor
+    src_valid: Optional[torch.Tensor]
+    mcd2: torch.Tensor
+    ks: torch.Tensor
+    ks2: torch.Tensor
+    zero: torch.Tensor
+    tikhonov: torch.Tensor
+    convergence: float
+
+
+def _setup(src: torch.Tensor, src_valid: Optional[torch.Tensor],
+           map_pts: torch.Tensor, map_valid: Optional[torch.Tensor],
+           init_pose: torch.Tensor, max_corr_dist: float,
+           kernel_scale: float, voxel_size: float, convergence: float
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, _Fixed]:
+    """A registration's buffers before its first iteration (`cur`, `T_icp`,
+    `stop`) and what its iterations read (the map's index built here), for
+    _gn_step; init_pose (4, 4) f32 on src's device."""
+    device = src.device
+    map_pts = map_pts.to(torch.float32)
+    f32 = dict(dtype=torch.float32, device=device)
+    # constants filled on the device: a copy from the host would wait
+    mcd = torch.full((), max_corr_dist, **f32)
+    ks = torch.full((), kernel_scale, **f32)
+    cur = _transform(init_pose, src.to(torch.float32))
+    T_icp = torch.eye(4, **f32)
+    stop = torch.zeros((), dtype=torch.bool, device=device)
+    # the map stays fixed through the loop: one index serves every search
+    with profiling.span("icp.index_build"):
+        index = build_icp_index(map_pts, map_valid, voxel_size)
+    return cur, T_icp, stop, _Fixed(
+        index, map_pts, src_valid, mcd * mcd, ks, ks * ks,
+        torch.zeros((), **f32),
+        1e-6 * torch.eye(6, dtype=torch.float64, device=device), convergence)
+
+
+def _gn_step(cur: torch.Tensor, T_icp: torch.Tensor, stop: torch.Tensor,
+             fx: _Fixed) -> None:
+    """One Gauss-Newton iteration on the registration's buffers, updated
+    in place: the source points as moved so far `cur` (N, 3) f32, the
+    increments so far `T_icp` (4, 4) f32 and `stop` (a bool). It reads
+    the host nothing and waits on nothing, so a CUDA graph can hold it."""
+    best_d2, best_idx = icp_nn(cur, index=fx.index)
+    # strict <, like DataAssociation's `distance < max_correspondance_distance`
+    corr = best_d2 < fx.mcd2
+    if fx.src_valid is not None:
+        corr &= fx.src_valid
+    r = cur - fx.map_pts[best_idx]
+    r2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
+    den = fx.ks + r2
+    w = torch.where(corr, fx.ks2 / (den * den), fx.zero)
+    sums = _normal_terms(cur, r, w, corr)
+    JTJ = _jtj(sums, fx.zero).to(torch.float64)
+    # the Tikhonov floor keeps the solve finite when correspondences
+    # collapse; a converged/degenerate step then yields dx ~ 0
+    dx = torch.linalg.solve_ex(JTJ + fx.tikhonov,
+                               -sums[:6].to(torch.float64)).result \
+        .to(torch.float32)
+    dT = _se3_exp_kiss(dx)
+    enough = sums[16] >= 6
+    cur.copy_(torch.where(enough, _transform(dT, cur), cur))
+    T_icp.copy_(torch.where(enough, _mm(dT, T_icp), T_icp))
+    stop.copy_((torch.linalg.vector_norm(dx) < fx.convergence) | ~enough)
+
+
+class _Capture(threading.local):
+    """A thread's capture state for each CUDA device: the side stream its
+    captures run on, the memory pool their graphs share, and the last
+    graph captured. The allocator lets a capture share a pool only while a
+    live graph holds it, so a graph stays until the next capture replaces
+    it (a registration's buffers are gone by then; it is never replayed
+    again)."""
+
+    def __init__(self):
+        self.by_device: dict = {}
+
+
+_CAPTURE = _Capture()
+
+
+def _capture(cur: torch.Tensor, T_icp: torch.Tensor, stop: torch.Tensor,
+             fx: _Fixed) -> torch.cuda.CUDAGraph:
+    """_gn_step on these buffers captured once as a CUDA graph on their
+    device, in the thread's pool, on its side stream; replay it on any
+    stream. The thread's first capture on a device first runs one step
+    eagerly on copies of the buffers, on the side stream, so that lazily
+    made library state (the solver's handle and workspace, the search
+    kernel's module) exists before a capture. Not torch.cuda.graph: its
+    entry synchronizes the device, may collect garbage and empties the
+    allocator's cache, every capture."""
+    with torch.cuda.device(cur.device):
+        device = torch.cuda.current_device()
+        state = _CAPTURE.by_device.get(device)
+        current = torch.cuda.current_stream(device)
+        if state is None:
+            side = torch.cuda.Stream(device)
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                _gn_step(cur.clone(), T_icp.clone(), stop.clone(), fx)
+            current.wait_stream(side)
+            state = _CAPTURE.by_device[device] = [
+                side, torch.cuda.graph_pool_handle(), None]
+        side, pool, _ = state
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(side):
+            # thread_local: another thread's CUDA calls (a scan source's
+            # staging thread) cannot invalidate the capture
+            graph.capture_begin(pool=pool, capture_error_mode="thread_local")
+            try:
+                _gn_step(cur, T_icp, stop, fx)
+            finally:
+                graph.capture_end()
+        state[2] = graph
+    return graph
+
+
 def register_points_device(src: torch.Tensor,
                            src_valid: Optional[torch.Tensor],
                            map_pts: torch.Tensor,
@@ -133,50 +263,27 @@ def register_points_device(src: torch.Tensor,
     after max_iters. Returns the (4, 4) float32 pose. `stats`, where given,
     receives the iterations run; the host reads one stop flag an
     iteration (counted in the tracer's `icp.host_syncs`, the iterations in
-    `icp.gn_iterations`)."""
+    `icp.gn_iterations`). On CUDA the iteration is captured once as a CUDA
+    graph (`icp.graph_captures`, span `icp.graph_capture`) and replayed
+    (`icp.graph_replays`); on the CPU it runs eagerly."""
     device = src.device
-    src = src.to(torch.float32)
     init_pose = init_pose.to(device, torch.float32)
-    map_pts = map_pts.to(torch.float32)
-    f32 = dict(dtype=torch.float32, device=device)
-    # constants filled on the device: a copy from the host would wait
-    mcd = torch.full((), max_corr_dist, **f32)
-    mcd2 = mcd * mcd
-    ks = torch.full((), kernel_scale, **f32)
-    ks2 = ks * ks
-    zero = torch.zeros((), **f32)
-    tikhonov = 1e-6 * torch.eye(6, dtype=torch.float64, device=device)
-
-    cur = _transform(init_pose, src)
-    T_icp = torch.eye(4, **f32)
-    # the map stays fixed through the loop: one index serves every search
-    with profiling.span("icp.index_build"):
-        index = build_icp_index(map_pts, map_valid, voxel_size)
+    cur, T_icp, stop, fx = _setup(src, src_valid, map_pts, map_valid,
+                                  init_pose, max_corr_dist, kernel_scale,
+                                  voxel_size, convergence)
     it = 0
     with profiling.span("icp.gn_loop"):
+        graph = None
+        if device.type == "cuda" and max_iters > 0:
+            with profiling.span("icp.graph_capture"):
+                graph = _capture(cur, T_icp, stop, fx)
+            profiling.count("icp.graph_captures")
         while it < max_iters:
-            best_d2, best_idx = icp_nn(cur, index=index)
-            # strict <, like DataAssociation's
-            # `distance < max_correspondance_distance`
-            corr = best_d2 < mcd2
-            if src_valid is not None:
-                corr &= src_valid
-            r = cur - map_pts[best_idx]
-            r2 = (r[:, 0] * r[:, 0] + r[:, 1] * r[:, 1]) + r[:, 2] * r[:, 2]
-            den = ks + r2
-            w = torch.where(corr, ks2 / (den * den), zero)
-            sums = _normal_terms(cur, r, w, corr)
-            JTJ = _jtj(sums, zero).to(torch.float64)
-            # the Tikhonov floor keeps the solve finite when correspondences
-            # collapse; a converged/degenerate step then yields dx ~ 0
-            dx = torch.linalg.solve_ex(JTJ + tikhonov,
-                                       -sums[:6].to(torch.float64)).result \
-                .to(torch.float32)
-            dT = _se3_exp_kiss(dx)
-            enough = sums[16] >= 6
-            cur = torch.where(enough, _transform(dT, cur), cur)
-            T_icp = torch.where(enough, _mm(dT, T_icp), T_icp)
-            stop = (torch.linalg.vector_norm(dx) < convergence) | ~enough
+            if graph is None:
+                _gn_step(cur, T_icp, stop, fx)
+            else:
+                graph.replay()
+                profiling.count("icp.graph_replays")
             it += 1
             profiling.count("icp.gn_iterations")
             profiling.count("icp.host_syncs")       # bool(stop) waits

@@ -34,8 +34,10 @@ VoxelHashMap's;
 icp_nn's kernels (a voxel index once a map, one search a call) give the
 indices and the bits of icp_nn_reference, on the card and on the CPU, on
 dense, tied, masked, empty and saturated inputs too; register_points_device on the card is within 1e-4 m
-of the CPU and gives the same bits with TF32 allowed; the SLAM engine's
-device backend launches icp_nn once a Gauss-Newton iteration; normals and
+of the CPU and gives the same bits with TF32 allowed, and its CUDA graph
+(one capture a registration, one replay an iteration) gives the eager
+step's bits after every iteration; the SLAM engine's device backend
+captures once a registration and replays once an iteration; normals and
 voxel downsampling on the card agree with the CPU within stated bounds."""
 
 import numpy as np
@@ -938,30 +940,17 @@ def test_sharded_project_on_a_one_card_mesh(cuda):
 
 # -- SLAM on the card: icp_nn, register_points_device, normals, downsample ----
 
-def _world(n: int = 4000, seed: int = 0) -> np.ndarray:
-    """Two walls, a floor and clutter (the JAX package's SLAM test scene)."""
-    rng = np.random.default_rng(seed)
-    q = n // 4
-    return np.concatenate([
-        np.stack([rng.uniform(5, 30, q), 8.0 + rng.normal(0, 0.01, q),
-                  rng.uniform(0, 4, q)], axis=1),
-        np.stack([25.0 + rng.normal(0, 0.01, q), rng.uniform(-10, 8, q),
-                  rng.uniform(0, 4, q)], axis=1),
-        np.stack([rng.uniform(5, 30, q), rng.uniform(-10, 8, q),
-                  rng.normal(0, 0.01, q)], axis=1),
-        rng.uniform([5, -10, 0], [30, 8, 4], size=(q, 3))])
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,m,masked", [(1000, 30000, False),
                                         (6000, 200000, True), (1, 7, False)])
 def test_icp_nn_matches_plain_on_the_card(cuda, n, m, masked):
     """icp_nn's kernel against icp_nn_reference on the same card tensors:
     indices equal, distances bit-equal, one launch a call."""
+    import chip_smoke as cs
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
 
     rng = np.random.default_rng(n)
-    world = _world(max(m, 4), seed=1)[:m]
+    world = cs.icp_world(max(m, 4), seed=1)[:m]
     src = world[rng.integers(0, m, n)] + rng.normal(0, 0.3, (n, 3))
     src_t = torch.from_numpy(src.astype(np.float32)).to(cuda)
     map_t = torch.from_numpy(world.astype(np.float32)).to(cuda)
@@ -1046,16 +1035,47 @@ def test_icp_nn_cases_match_plain_on_the_card(cuda, case):
     assert torch.equal(idx, want_idx)
 
 
+def _warm_graphs(cuda):
+    """One registration on this thread: its first capture on the card runs
+    one eager step to make the libraries' lazy state, and launches icp_nn
+    once more than it captures; the counts of a test start after it."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.slam.device_icp import register_points_device
+
+    pts = torch.from_numpy(cs.icp_world(400).astype(np.float32)).to(cuda)
+    register_points_device(pts, None, pts, None, torch.eye(4, device=cuda),
+                           1.0, 0.3, voxel_size=1.0)
+
+
+def _counted(fn):
+    """fn() with the program's tracer on: (its result, counter -> sum)."""
+    from ouster_sdk_tpu_torch.utils import profiling
+
+    profiling.clear()
+    try:
+        with profiling.tracing(True):
+            out = fn()
+        counts = {}
+        for c in profiling.snapshot().counts:
+            counts[c.name] = counts.get(c.name, 0) + c.n
+    finally:
+        profiling.clear()
+    return out, counts
+
+
 @pytest.mark.cuda
 def test_register_points_device_on_the_card_matches_the_cpu(cuda):
     """register_points_device on the card against the CPU: translation
     within 1e-4 m and rotation within 1e-5 (sums in another order on the
-    card); with allow_tf32 the card gives the same bits."""
+    card); with allow_tf32 the card gives the same bits. On the card the
+    iteration is one CUDA graph a registration: icp_nn is launched once,
+    at its capture, and every iteration is a replay."""
+    import chip_smoke as cs
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
     from ouster_sdk_tpu_torch.slam.device_icp import register_points_device
     from ouster_sdk_tpu_torch.slam.kiss_icp import VoxelHashMap, se3_exp
 
-    world = _world()
+    world = cs.icp_world()
     vm = VoxelHashMap(1.0, 200.0, 20)
     vm.add_points(world)
     T = se3_exp(np.array([0.3, -0.2, 0.1, 0.02, -0.01, 0.03]))
@@ -1071,9 +1091,12 @@ def test_register_points_device_on_the_card_matches_the_cpu(cuda):
             stats=st)
         return out.cpu().numpy(), st
 
+    _warm_graphs(cuda)
     nn.reset_launches()
-    got, st = run(cuda)
-    assert nn.launches["icp_nn"] == st["iterations"] > 0
+    (got, st), counts = _counted(lambda: run(cuda))
+    assert nn.launches["icp_nn"] == counts["icp.graph_captures"] == 1
+    assert counts["icp.graph_replays"] == st["iterations"] > 0
+    assert counts["icp.gn_iterations"] == st["iterations"]
     assert nn.launches["icp_nn_index"] == 1     # one index a registration
     want, _ = run("cpu")
     assert np.linalg.norm(got[:3, 3] - want[:3, 3]) <= 1e-4
@@ -1089,10 +1112,59 @@ def test_register_points_device_on_the_card_matches_the_cpu(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["sizes", "first", "few", "max_iters",
+                                  "masks"])
+def test_graph_replay_is_bit_equal_to_the_eager_step(cuda, case):
+    """register_points_device on the card (one CUDA graph a registration,
+    replayed) against _gn_step run eagerly on the card from the same
+    inputs: the pose after every iteration bit-equal (the registration
+    cut at that iteration by max_iters), and the same stop. One capture
+    and one icp_nn launch a registration, one replay an iteration."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.slam import device_icp as di
+
+    def on_card(a):
+        return None if a is None else torch.from_numpy(a).to(cuda)
+
+    _warm_graphs(cuda)
+    for src, sv, mp, mv, init, mcd, ks, max_iters in cs.gn_cases(case):
+        src, sv, mp, mv, init = map(on_card, (src, sv, mp, mv, init))
+        cur, T_icp, stop, fx = di._setup(src, sv, mp, mv, init, mcd, ks,
+                                         1.0, 1e-4)
+        eager = []
+        for _ in range(max_iters):
+            di._gn_step(cur, T_icp, stop, fx)
+            eager.append(di._mm(T_icp, init))
+            if bool(stop):
+                break
+        cuts = sorted({1, len(eager) // 2 or 1, len(eager)}) \
+            if case == "sizes" else range(1, len(eager) + 1)
+        for k in cuts:
+            nn.reset_launches()
+            st = {}
+            got, counts = _counted(lambda: di.register_points_device(
+                src, sv, mp, mv, init, mcd, ks, voxel_size=1.0,
+                max_iters=max_iters if k == len(eager) else k, stats=st))
+            assert st["iterations"] == k
+            assert torch.equal(got.view(torch.int32),
+                               eager[k - 1].view(torch.int32)), (case, k)
+            assert nn.launches["icp_nn"] == counts["icp.graph_captures"] == 1
+            assert counts["icp.graph_replays"] == k
+        if case == "first" or case == "few":
+            assert len(eager) == 1
+        if case == "few":
+            assert torch.equal(eager[0], init)
+        if case == "max_iters":
+            assert len(eager) == 3 and not bool(stop)
+
+
+@pytest.mark.cuda
 def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
     """open_source -> SlamEngine(backend="device") on a small yard capture:
-    every registration launches icp_nn once an iteration, and the device
-    trajectory stays within 0.05 m of the host backend's."""
+    every registration captures its iteration once (one icp_nn launch) and
+    replays it once an iteration, and the device trajectory stays within
+    0.05 m of the host backend's."""
     import chip_smoke as cs
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
     from ouster_sdk_tpu_torch.slam import SlamConfig, SlamEngine
@@ -1101,19 +1173,27 @@ def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
     path = str(tmp_path / "yard.pcap")
     cs.yard_capture(pt, path, info, 6)
     poses = {}
+    _warm_graphs(cuda)
     for backend in ("device", "host"):
         eng = SlamEngine([info], SlamConfig(backend=backend, voxel_size=1.0))
         nn.reset_launches()
-        iters, out = 0, []
-        for scans in pt.open_source(path, sensor_info=[info]):
-            eng.update(scans)
-            out.append(eng.last_pose.copy())
-            iters += getattr(eng._kiss, "last_frame", {}).get("iterations",
-                                                              0)
+        iters, regs, out = 0, 0, []
+
+        def drive():
+            nonlocal iters, regs
+            for scans in pt.open_source(path, sensor_info=[info]):
+                eng.update(scans)
+                out.append(eng.last_pose.copy())
+                last = getattr(eng._kiss, "last_frame", {})
+                iters += last.get("iterations", 0)
+                regs += last.get("m", 0) > 0
+        _, counts = _counted(drive)
         poses[backend] = np.stack(out)
         if backend == "device":
             assert eng.device.type == "cuda"
-            assert nn.launches["icp_nn"] == iters > 0
+            assert nn.launches["icp_nn"] == counts["icp.graph_captures"] \
+                == regs > 0
+            assert counts["icp.graph_replays"] == iters > 0
     assert np.abs(poses["device"][:, :3, 3]
                   - poses["host"][:, :3, 3]).max() <= 0.05
 

@@ -171,6 +171,50 @@ def test_register_points_device_takes_padded_rows():
     assert np.linalg.norm(want.numpy()[:3, 3] - T[:3, 3]) < 0.05
 
 
+@pytest.mark.parametrize("case", cs.GN_CASES)
+def test_register_points_device_on_the_cpu_steps_eagerly(case):
+    """On the CPU the Gauss-Newton loop runs _gn_step eagerly (the card
+    replays it as a CUDA graph): the pose is the step's own after as many
+    iterations, bit for bit, to the same stop; the tracer counts an
+    iteration and a sync each, and no capture or replay."""
+    from ouster_sdk_tpu_torch.utils import profiling
+
+    def as_t(a):
+        return None if a is None else torch.from_numpy(a)
+
+    for src, sv, mp, mv, init, mcd, ks, max_iters in cs.gn_cases(case):
+        src, sv, mp, mv, init = map(as_t, (src, sv, mp, mv, init))
+        cur, T_icp, stop, fx = tdev._setup(src, sv, mp, mv, init, mcd, ks,
+                                           1.0, 1e-4)
+        eager = []
+        for _ in range(max_iters):
+            tdev._gn_step(cur, T_icp, stop, fx)
+            eager.append(tdev._mm(T_icp, init))
+            if bool(stop):
+                break
+        st = {}
+        profiling.clear()
+        with profiling.tracing(True):
+            got = tdev.register_points_device(
+                src, sv, mp, mv, init, mcd, ks, voxel_size=1.0,
+                max_iters=max_iters, stats=st)
+        snap = profiling.snapshot()
+        profiling.clear()
+        counts = {}
+        for c in snap.counts:
+            counts[c.name] = counts.get(c.name, 0) + c.n
+        assert st["iterations"] == len(eager)
+        assert torch.equal(got.view(torch.int32),
+                           eager[-1].view(torch.int32))
+        assert counts == {"icp.gn_iterations": len(eager),
+                          "icp.host_syncs": len(eager)}
+        assert "icp.graph_capture" not in {s.name for s in snap.spans}
+    if case in ("first", "few"):
+        assert len(eager) == 1
+    if case == "max_iters":
+        assert len(eager) == 3 and not bool(stop)
+
+
 def _drive(icp, world, n=4):
     """test_jax_icp_odometry_matches_host's drive."""
     est, T = [], np.eye(4)

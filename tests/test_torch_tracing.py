@@ -9,7 +9,8 @@ and counters the program records with it, on the CPU.
 - A span is never a profiler range; device_trace() writes the spans into
   its Chrome trace on the profiler's time base.
 - A 16 x 256 replay to XYZ, open_source with XYZLut, and SlamEngine on the
-  device backend record every span and counter of the program's layers.
+  device backend record every span and counter of the program's layers,
+  but the card's own (the Gauss-Newton iteration's CUDA graph).
 """
 
 import json
@@ -35,6 +36,8 @@ ENGINE = {"engine.admission", "engine.decode", "engine.copy_back",
 SLAM = {"slam.predict", "slam.gather", "slam.preprocess", "slam.voxelize",
         "slam.threshold", "icp.map_upload", "icp.index_build", "icp.gn_loop",
         "map.add_points", "map.remove_far"}
+# the card's alone: the Gauss-Newton iteration's CUDA graph (slam/device_icp)
+CARD_ONLY = {"icp.graph_capture", "icp.graph_captures", "icp.graph_replays"}
 
 
 @pytest.fixture
@@ -218,6 +221,8 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
     assert ENGINE | {"engine.d2h_copies"} <= names(engine)
     assert SLAM | {"icp.gn_iterations", "icp.host_syncs", "map.host_syncs",
                    "map.new_voxels"} <= names(slam)
+    # on the CPU the Gauss-Newton loop steps eagerly: no capture, no replay
+    assert not CARD_ONLY & names(slam)
     main = threading.get_native_id()
     staged = {s.thread for s in replay.spans
               if s.name == "frames.stage_chunk"}
