@@ -552,6 +552,30 @@ def host_issue_ms(fn, iters: int = 50, windows: int = 5) -> float:
     return best
 
 
+def kernel_profile(fn):
+    """Run `fn` once warm under torch.profiler and return what ran on the
+    device as [(name, count, microseconds)], kernels and copies alike."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        rows.append((e.key, int(e.count), float(us)))
+    return rows
+
+
 def copy_bandwidth() -> float:
     """Device-to-device copy rate of this card, bytes/s (read + write)."""
     import torch
@@ -844,8 +868,6 @@ def _run(torch, port, pk, dev, tmp) -> int:
 
     # 6. what one warm wrapper call puts on the device (torch.profiler):
     # with float32 contiguous poses, the planar kernel and nothing else
-    from ouster_sdk_tpu_torch.kernels.bench_planar import kernel_profile
-
     def device_events(what, fn):
         for _ in range(5):      # the profiler at times returns no record
             rows = kernel_profile(fn)

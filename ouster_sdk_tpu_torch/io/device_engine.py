@@ -36,7 +36,7 @@ from ..core.batcher import ScanBatcher, _frame_status
 from ..core.lidar_scan import LidarScan
 from ..core.packets import ImuPacket, ZonePacket
 from ..core.types import SensorInfo, UDPProfileIMU, UDPProfileLidar
-from ..ops.fused import default_device
+from ..ops.fused import resolve_device
 from ..ops.packet_format import PacketFormat, read_bits
 from ..ops.planar_kernels import PlanarLut, project_ranges, words_tensor
 from ..ops.unpack import decode_frame_planar_batch, make_decode_plan
@@ -49,10 +49,6 @@ from .frames import FrameReader, stage_planar
 #: projector windows), `scans` the LidarScans handed out, `osf_batches`
 #: the projector's windows alone.
 stats = {"batches": 0, "scans": 0, "osf_batches": 0}
-
-
-def _device(device) -> torch.device:
-    return default_device() if device is None else torch.device(device)
 
 
 def device_decode_enabled() -> bool:
@@ -499,7 +495,7 @@ class DeviceScanIterator:
                  pipelined: bool = True,
                  raw_fields: bool = False,
                  device=None):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.info = info
         self.pf = PacketFormat.from_info(info)
         # strict ports: packet-by-packet reading classifies by the
@@ -739,7 +735,7 @@ class LiveDeviceBatcher:
     _RING = 4
 
     def __init__(self, info: SensorInfo, field_types=None, device=None):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self.info = info
         self.pf = PacketFormat.from_info(info)
         self.plan = make_decode_plan(info)
@@ -1033,7 +1029,7 @@ class OsfDeviceProjector:
 
     def __init__(self, infos: List[SensorInfo], batch: int = 4,
                  device=None):
-        self.device = _device(device)
+        self.device = resolve_device(device)
         self._infos = infos
         self._batch = max(1, batch)
         self._per_sensor = [None] * len(infos)  # lazy (variants, luts)

@@ -1,10 +1,15 @@
-"""Build the port's CUDA kernels at first use.
+"""Build the port's CUDA kernels at first use, and bind their launchers.
 
 Each source under csrc/ compiles with nvcc for Hopper (sm_90a) into a
 shared library with a plain C interface, loaded with ctypes: no PyTorch
 headers, so a build takes seconds. Libraries land in kernels/_build/
 (git-ignored), named by a hash of the source and flags, so an edited
 source rebuilds and an unchanged one loads from disk.
+
+Every C launcher returns 0 or an error code that the source's
+`<stem>_error_string` names, and takes PyTorch's stream last. `bind`
+turns such launchers into Python calls; `check_operand` is the check that
+every wrapper makes of the tensors it hands them.
 
     python -m ouster_sdk_tpu_torch.kernels.build     # build all, print ptxas
 """
@@ -19,7 +24,9 @@ import subprocess
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Tuple
+from typing import Callable, Dict, Sequence, Tuple
+
+import torch
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -31,6 +38,10 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xptxas", "-v")
 
 _libs: Dict[str, ctypes.CDLL] = {}
+#: launch symbols of each bound source and their argument types, the
+#: stream left out; typed in the library at its first call
+_signatures: Dict[str, Dict[str, Sequence]] = {}
+_typed: Dict[str, ctypes.CDLL] = {}
 #: ptxas report and seconds of each build made in this process
 build_log: Dict[str, Tuple[str, float]] = {}
 
@@ -90,6 +101,77 @@ def load(source: str) -> ctypes.CDLL:
     if lib is None:
         lib = _libs[source] = ctypes.CDLL(_compile(source))
     return lib
+
+
+def _typed_lib(source: str) -> ctypes.CDLL:
+    lib = _typed.get(source)
+    if lib is None:
+        lib = load(source)
+        for symbol, argtypes in _signatures[source].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = [*argtypes, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        fn = getattr(lib, _error_string(source))
+        fn.argtypes = [ctypes.c_int]
+        fn.restype = ctypes.c_char_p
+        _typed[source] = lib
+    return lib
+
+
+def _error_string(source: str) -> str:
+    return os.path.splitext(source)[0] + "_error_string"
+
+
+def call(source: str, symbol: str, what: str, *args) -> None:
+    """Call launch `symbol` of `source` (bound with `bind`) with `args`,
+    the stream included, and raise RuntimeError("<what> launch failed:
+    <message> (<code>)") if it returns nonzero."""
+    lib = _typed_lib(source)
+    err = getattr(lib, symbol)(*args)
+    if err != 0:
+        msg = getattr(lib, _error_string(source))(err).decode()
+        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+
+
+def bind(source: str, *launches: Tuple[str, str, Sequence]
+         ) -> Tuple[Callable[..., None], ...]:
+    """One launcher for each (symbol, what, argtypes) of `source`, argtypes
+    without the trailing stream. `launcher(device, *args)` enters
+    `device`, appends the device's current stream to `args` and calls the
+    symbol as `call` does. It neither synchronizes nor allocates, so a
+    CUDA graph capture records the launch as the eager call issues it.
+    The library is built, loaded and typed at the first call."""
+    _signatures[source] = {symbol: argtypes for symbol, _, argtypes
+                           in launches}
+
+    def launcher(symbol: str, what: str) -> Callable[..., None]:
+        def launch(device: torch.device, *args) -> None:
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                call(source, symbol, what, *args, stream)
+        return launch
+
+    return tuple(launcher(symbol, what) for symbol, what, _ in launches)
+
+
+def check_operand(t: torch.Tensor, name: str, dtype: torch.dtype,
+                  shape: Tuple[int, ...], device: torch.device) -> None:
+    """Raise ValueError unless `t` is a contiguous `dtype` tensor of
+    `shape` on `device`: what a launcher takes of every operand."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, the frames on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def bit_mask(size: int) -> int:
+    """The mask of a field's `size` low bits, as a uint32."""
+    return (1 << size) - 1 if size < 32 else 0xFFFFFFFF
 
 
 if __name__ == "__main__":

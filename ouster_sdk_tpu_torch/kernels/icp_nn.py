@@ -35,8 +35,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .build import load
-from .planar_project import _check
+from .build import bind, check_operand
 
 #: Kernel launches, counted by the wrapper where it launches the CUDA
 #: kernel and nowhere else.
@@ -56,28 +55,12 @@ def reset_launches() -> None:
 reset_launches()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = {
-    "icp_index_launch": [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _I, _P],
-    "icp_nn_search_launch": [_P, _I, _P, _P, _P, _I, _P, _F, _P, _P, _P],
-}
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load("icp_nn.cu")
-    if lib.icp_nn_search_launch.argtypes is None:
-        for name, argtypes in _ARGTYPES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.icp_nn_error_string.argtypes = [ctypes.c_int]
-        lib.icp_nn_error_string.restype = ctypes.c_char_p
-    return lib
-
-
-def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.icp_nn_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: {msg} ({err})")
+_index_launch, _search_launch = bind(
+    "icp_nn.cu",
+    ("icp_index_launch", "icp_nn index",
+     [_P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P, _I]),
+    ("icp_nn_search_launch", "icp_nn",
+     [_P, _I, _P, _P, _P, _I, _P, _F, _P, _P]))
 
 
 def _voxels(p: torch.Tensor, voxel_size: float) -> torch.Tensor:
@@ -169,9 +152,9 @@ def build_icp_index(map_pts: torch.Tensor,
     if device.type != "cuda":
         raise ValueError(f"icp_nn runs on the CPU or CUDA, got {device}")
     m = map_pts.shape[0]
-    _check(map_pts, "map_pts", torch.float32, (m, 3), device)
+    check_operand(map_pts, "map_pts", torch.float32, (m, 3), device)
     if map_valid is not None:
-        _check(map_valid, "map_valid", torch.bool, (m,), device)
+        check_operand(map_valid, "map_valid", torch.bool, (m,), device)
     if m >= 2**29:
         raise ValueError("icp_nn takes fewer than 2**29 map points")
     slots = table_slots(m)
@@ -184,17 +167,12 @@ def build_icp_index(map_pts: torch.Tensor,
                      meta=torch.empty((2,), **i32))
     vox = torch.empty((m, 4), **i32)
     key = torch.empty((slots,), **i32)
-    with torch.cuda.device(device):
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        stream = torch.cuda.current_stream(device).cuda_stream
-        lib = _lib()
-        err = lib.icp_index_launch(
-            map_pts.data_ptr(), None if map_valid is None
-            else map_valid.data_ptr(), m, float(voxel_size), slots,
-            vox.data_ptr(), key.data_ptr(), index.cells.data_ptr(),
-            index.starts.data_ptr(), index.points.data_ptr(),
-            index.meta.data_ptr(), sms, stream)
-    _raise_on(lib, err, "icp_nn index")
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    _index_launch(device, map_pts.data_ptr(),
+                  None if map_valid is None else map_valid.data_ptr(), m,
+                  float(voxel_size), slots, vox.data_ptr(), key.data_ptr(),
+                  index.cells.data_ptr(), index.starts.data_ptr(),
+                  index.points.data_ptr(), index.meta.data_ptr(), sms)
     launches["icp_nn_index"] += 1
     return index
 
@@ -235,26 +213,21 @@ def icp_nn(src: torch.Tensor, map_pts: Optional[torch.Tensor] = None,
     if device.type != "cuda":
         raise ValueError(f"icp_nn runs on the CPU or CUDA, got {device}")
     n = src.shape[0]
-    _check(src, "src", torch.float32, (n, 3), device)
+    check_operand(src, "src", torch.float32, (n, 3), device)
     if n >= 2**31:
         raise ValueError("icp_nn takes fewer than 2**31 queries")
     best_d2 = torch.empty((n,), dtype=torch.float32, device=device)
     best_idx = torch.empty((n,), dtype=torch.int64, device=device)
     if index is None:
-        _check(map_pts, "map_pts", torch.float32, (map_pts.shape[0], 3),
-               device)
+        check_operand(map_pts, "map_pts", torch.float32,
+                      (map_pts.shape[0], 3), device)
     if n == 0:
         return best_d2, best_idx
     if index is None:
         index = build_icp_index(map_pts, map_valid, voxel_size)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        lib = _lib()
-        err = lib.icp_nn_search_launch(
-            src.data_ptr(), n, index.cells.data_ptr(),
-            index.starts.data_ptr(), index.points.data_ptr(),
-            index.cells.shape[0], index.meta.data_ptr(), index.voxel_size,
-            best_d2.data_ptr(), best_idx.data_ptr(), stream)
-    _raise_on(lib, err, "icp_nn")
+    _search_launch(device, src.data_ptr(), n, index.cells.data_ptr(),
+                   index.starts.data_ptr(), index.points.data_ptr(),
+                   index.cells.shape[0], index.meta.data_ptr(),
+                   index.voxel_size, best_d2.data_ptr(), best_idx.data_ptr())
     launches["icp_nn"] += 1
     return best_d2, best_idx

@@ -13,26 +13,17 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .build import load
-from .planar_project import _check, _mask
+from .build import bind, bit_mask, check_operand
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-_ARGTYPES = [_P, _P, _P, _P, _P, _P, _P,        # frames, 4 LUT planes, outs
-             _I, _I, _I, _I, _I,                # B n_pkts pkt_words h w
-             _I, _I, _I, _I, _I,                # hw cw chw cpp pw
-             _I, _I, _U, _I, _I, _I, _U, _I,    # word/bit/mask/up x2
-             _I, _I,                            # status word, bit
-             _I, _I, _P]                        # dd dual stream
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load("packet_project.cu")
-    if lib.packet_project_launch.argtypes is None:
-        lib.packet_project_launch.argtypes = _ARGTYPES
-        lib.packet_project_launch.restype = ctypes.c_int
-        lib.packet_project_error_string.argtypes = [ctypes.c_int]
-        lib.packet_project_error_string.restype = ctypes.c_char_p
-    return lib
+(_launch,) = bind("packet_project.cu", (
+    "packet_project_launch", "packet_project",
+    [_P, _P, _P, _P, _P, _P, _P,        # frames, 4 LUT planes, outs
+     _I, _I, _I, _I, _I,                # B n_pkts pkt_words h w
+     _I, _I, _I, _I, _I,                # hw cw chw cpp pw
+     _I, _I, _U, _I, _I, _I, _U, _I,    # word/bit/mask/up x2
+     _I, _I,                            # status word, bit
+     _I, _I]))                          # dd dual
 
 
 def launch(frames: torch.Tensor, lut: Sequence[torch.Tensor], plan,
@@ -46,29 +37,22 @@ def launch(frames: torch.Tensor, lut: Sequence[torch.Tensor], plan,
                          f"{device}")
     B = frames.shape[0]
     h, w = plan.h, plan.w
-    _check(frames, "frames", torch.int32, (B, plan.n_pkts, plan.pkt_words),
-           device)
+    check_operand(frames, "frames", torch.int32,
+                  (B, plan.n_pkts, plan.pkt_words), device)
     for t, name in zip(lut, ("dir_hi", "dir_lo", "off_hi", "off_lo")):
-        _check(t, name, torch.float32, (3, h, w), device)
+        check_operand(t, name, torch.float32, (3, h, w), device)
 
     outs = tuple(torch.empty((B, 3, h, w), dtype=torch.float32,
                              device=device) for _ in fields)
     if B == 0:
         return outs
     f1, f2 = fields[0], fields[-1]
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        lib = _lib()
-        err = lib.packet_project_launch(
-            frames.data_ptr(), *(t.data_ptr() for t in lut),
+    _launch(device, frames.data_ptr(), *(t.data_ptr() for t in lut),
             outs[0].data_ptr(), outs[-1].data_ptr(),
             B, plan.n_pkts, plan.pkt_words, h, w,
             plan.hw, plan.cw, plan.chw, plan.cpp, plan.pw,
-            f1.word, f1.bit, _mask(f1.size), f1.upshift,
-            f2.word, f2.bit, _mask(f2.size), f2.upshift,
+            f1.word, f1.bit, bit_mask(f1.size), f1.upshift,
+            f2.word, f2.bit, bit_mask(f2.size), f2.upshift,
             plan.status_word, plan.status_bit, int(precision == "dd"),
-            int(len(fields) == 2), stream)
-    if err != 0:
-        msg = lib.packet_project_error_string(err).decode()
-        raise RuntimeError(f"packet_project launch failed: {msg} ({err})")
+            int(len(fields) == 2))
     return outs

@@ -30,8 +30,7 @@ from typing import Dict
 
 import torch
 
-from .build import load
-from .planar_project import _check
+from .build import bind, check_operand
 
 #: Kernel launches, counted by the wrapper where it launches the CUDA
 #: kernel and nowhere else.
@@ -49,17 +48,9 @@ reset_launches()
 
 _P, _I, _L, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_double
-_ARGTYPES = [_P, _P, _P, _P, _P, _L, _L, _I, _D, _P, _P, _P, _P, _P]
-
-
-def _lib() -> ctypes.CDLL:
-    lib = load("voxel_map.cu")
-    if lib.voxel_admit_launch.argtypes is None:
-        lib.voxel_admit_launch.argtypes = _ARGTYPES
-        lib.voxel_admit_launch.restype = ctypes.c_int
-        lib.voxel_map_error_string.argtypes = [ctypes.c_int]
-        lib.voxel_map_error_string.restype = ctypes.c_char_p
-    return lib
+(_launch,) = bind("voxel_map.cu", (
+    "voxel_admit_launch", "voxel_admit",
+    [_P, _P, _P, _P, _P, _L, _L, _I, _D, _P, _P, _P, _P]))
 
 
 def voxel_admit_reference(points: torch.Tensor, starts: torch.Tensor,
@@ -111,26 +102,19 @@ def voxel_admit(points: torch.Tensor, starts: torch.Tensor,
         raise ValueError(f"voxel_admit runs on the CPU or CUDA, got {device}")
     n, g, r = points.shape[0], rows.shape[0], keys.shape[0]
     cap = map_pts.shape[1] if map_pts.dim() == 3 else -1
-    _check(points, "points", torch.float64, (n, 3), device)
+    check_operand(points, "points", torch.float64, (n, 3), device)
     for t, name, dtype in ((starts, "starts", torch.int64),
                            (sizes, "sizes", torch.int32),
                            (group_keys, "group_keys", torch.int64),
                            (rows, "rows", torch.int64)):
-        _check(t, name, dtype, (g,), device)
-    _check(keys, "keys", torch.int64, (r,), device)
-    _check(map_pts, "map_pts", torch.float64, (r, cap, 3), device)
-    _check(count, "count", torch.int32, (r,), device)
+        check_operand(t, name, dtype, (g,), device)
+    check_operand(keys, "keys", torch.int64, (r,), device)
+    check_operand(map_pts, "map_pts", torch.float64, (r, cap, 3), device)
+    check_operand(count, "count", torch.int32, (r,), device)
     added = torch.empty((g,), dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        lib = _lib()
-        err = lib.voxel_admit_launch(
-            points.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
+    _launch(device, points.data_ptr(), starts.data_ptr(), sizes.data_ptr(),
             group_keys.data_ptr(), rows.data_ptr(), g, int(fresh_from), cap,
             float(res2), keys.data_ptr(), map_pts.data_ptr(),
-            count.data_ptr(), added.data_ptr(), stream)
-    if err != 0:
-        msg = lib.voxel_map_error_string(err).decode()
-        raise RuntimeError(f"voxel_admit launch failed: {msg} ({err})")
+            count.data_ptr(), added.data_ptr())
     launches["voxel_admit"] += 1
     return added

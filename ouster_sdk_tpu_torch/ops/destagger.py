@@ -1,9 +1,11 @@
 """Destagger / stagger: per-row circular shifts aligning columns in time vs
 azimuth (ref: ouster_client/include/ouster/impl/lidar_scan_impl.h:764-847,
 python data.py:103-126). A single gather with a per-row index map: numpy
-on the host, torch.gather on the device. The host keeps its index maps
-cached per (shifts, width, direction): OSF replay staggers every field of
-every scan, and building the map cost more than the gather.
+on the host, torch.gather on the device. Both take their index maps from
+one cache per (shifts, width, direction), the device path a copy of the
+map kept on each device: OSF replay staggers every field of every scan
+and the replay to XYZ destaggers every frame, and building the map and
+copying it to the card cost more than the gather.
 
 Semantics: destaggered[u, j] = staggered[u, (j - shift[u]) mod w]
 (shift sign +1; inverse flips the sign).
@@ -12,7 +14,7 @@ Semantics: destaggered[u, j] = staggered[u, (j - shift[u]) mod w]
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Union
+from typing import Dict, Sequence, Union
 
 import numpy as np
 import torch
@@ -28,20 +30,32 @@ def _shifts(info_or_shifts) -> np.ndarray:
     return np.asarray(info_or_shifts, dtype=np.int64)
 
 
-def _index_map(shifts: np.ndarray, w: int, inverse: bool) -> np.ndarray:
-    sign = -1 if inverse else 1
-    col = np.arange(w, dtype=np.int64)[None, :]
-    return (col - sign * shifts[:, None]) % w  # (h, w)
+class _IndexMap:
+    """The gather indices of one (shifts, w, direction), read-only: `rows`
+    (h, w), the column of the staggered image each pixel reads; `flat`, the
+    same as indices into the flattened (h, w) image, for the host path;
+    and `on(device)`, `rows` copied once to each device."""
+
+    def __init__(self, shifts: tuple, w: int, inverse: bool):
+        sign = -1 if inverse else 1
+        col = np.arange(w, dtype=np.int64)[None, :]
+        self.rows = (col - sign * np.asarray(shifts, dtype=np.int64)[:, None]
+                     ) % w
+        self.flat = self.rows + np.arange(len(shifts),
+                                          dtype=np.int64)[:, None] * w
+        self.rows.flags.writeable = self.flat.flags.writeable = False
+        self._on: Dict[torch.device, torch.Tensor] = {}
+
+    def on(self, device: torch.device) -> torch.Tensor:
+        idx = self._on.get(device)
+        if idx is None:
+            idx = self._on[device] = torch.tensor(self.rows, device=device)
+        return idx
 
 
 @functools.lru_cache(maxsize=64)
-def _flat_index_map(shifts: tuple, w: int, inverse: bool) -> np.ndarray:
-    """_index_map as read-only flat indices into an (h, w) image."""
-    h = len(shifts)
-    idx = _index_map(np.asarray(shifts, dtype=np.int64), w, inverse)
-    idx += np.arange(h, dtype=np.int64)[:, None] * w
-    idx.flags.writeable = False
-    return idx
+def _index_map(shifts: tuple, w: int, inverse: bool) -> _IndexMap:
+    return _IndexMap(shifts, w, inverse)
 
 
 def destagger(info_or_shifts, fields: np.ndarray,
@@ -51,7 +65,7 @@ def destagger(info_or_shifts, fields: np.ndarray,
     h, w = fields.shape[:2]
     if shifts.size != h:
         raise ValueError("image height does not match shifts size")
-    idx = _flat_index_map(tuple(shifts.tolist()), w, inverse)
+    idx = _index_map(tuple(shifts.tolist()), w, inverse).flat
     flat = fields.reshape((h * w,) + fields.shape[2:])
     return np.take(flat, idx, axis=0)
 
@@ -67,16 +81,16 @@ def destagger_torch(fields: torch.Tensor,
     """Device path, same semantics as destagger(): fields (..., h, w) or
     (..., h, w, n) with shifts of length h."""
     with profiling.span("destagger"):
-        shifts = np.asarray(shifts, dtype=np.int64)
-        if fields.shape[-2] == shifts.size:
+        shifts = tuple(np.asarray(shifts, dtype=np.int64).tolist())
+        if fields.shape[-2] == len(shifts):
             axis, w = -1, fields.shape[-1]
-            idx = torch.from_numpy(_index_map(shifts, w, inverse))
-        elif fields.ndim >= 3 and fields.shape[-3] == shifts.size:
+            idx = _index_map(shifts, w, inverse).on(fields.device)
+        elif fields.ndim >= 3 and fields.shape[-3] == len(shifts):
             axis, w = -2, fields.shape[-2]
-            idx = torch.from_numpy(_index_map(shifts, w, inverse))[..., None]
+            idx = _index_map(shifts, w, inverse).on(fields.device)[..., None]
         else:
             raise ValueError("image height does not match shifts size")
-        idx = idx.to(fields.device).expand(fields.shape)
+        idx = idx.expand(fields.shape)
         # gather has no unsigned 16/32-bit kernels: move the bits as signed
         signed = {torch.uint16: torch.int16, torch.uint32: torch.int32}
         if fields.dtype in signed:

@@ -56,6 +56,18 @@ def default_device() -> torch.device:
     return torch.device("cuda")
 
 
+def resolve_device(device=None, *tensors) -> torch.device:
+    """The device an entry point that also takes numpy runs on: the one
+    named, else that of the first tensor among `tensors`, else
+    default_device() (CUDA; raises without it)."""
+    if device is not None:
+        return torch.device(device)
+    for t in tensors:
+        if isinstance(t, torch.Tensor):
+            return t.device
+    return default_device()
+
+
 @dataclass(frozen=True)
 class PipelineConfig:
     """Static configuration of the packet-layout pipeline."""

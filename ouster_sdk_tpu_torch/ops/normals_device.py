@@ -29,7 +29,7 @@ from .normals import (
     FOREGROUND_SALIENCE_MM,
     _axis_candidates,
 )
-from .pose import _device_of
+from .fused import resolve_device
 
 
 def _shifted(arr: torch.Tensor, dr: int, dc: int, wrap_cols: bool
@@ -234,8 +234,8 @@ def normals_device(
     if min_angle_of_incidence_rad <= 0:
         raise ValueError(
             "normals: min_angle_of_incidence_rad must be positive")
-    device = _device_of(device, xyz, range_img, sensor_origins_xyz, xyz2,
-                        range2)
+    device = resolve_device(device, xyz, range_img, sensor_origins_xyz,
+                            xyz2, range2)
     xyz = torch.as_tensor(xyz)
     if xyz.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"normals: xyz must be float32 or float64, got "

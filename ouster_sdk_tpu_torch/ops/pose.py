@@ -198,26 +198,14 @@ def interp_pose(t: torch.Tensor, pose0: torch.Tensor,
     return pose0 @ exp_pose(t[..., None] * xi)
 
 
-def _device_of(device, *arrays) -> torch.device:
-    """The device an entry point that also takes numpy runs on: the one
-    named, else that of the first tensor among `arrays`, else CUDA (raises
-    without a GPU; the entry points never move to the CPU on their own)."""
-    if device is not None:
-        return torch.device(device)
-    for a in arrays:
-        if isinstance(a, torch.Tensor):
-            return a.device
-    from .fused import default_device
-
-    return default_device()
-
-
 def interp_pose_np(t, pose0: np.ndarray, pose1: np.ndarray,
                    device=None) -> np.ndarray:
     """interp_pose for host callers, numpy in and out, in the dtype of the
     poses. Computes on `device`: CUDA when none is named (raises without a
     GPU); pass device="cpu" to stay on the host."""
-    device = _device_of(device)
+    from .fused import resolve_device
+
+    device = resolve_device(device)
     pose0 = torch.as_tensor(np.asarray(pose0)).to(device)
     pose1 = torch.as_tensor(np.asarray(pose1)).to(device)
     t = torch.as_tensor(np.asarray(t)).to(device)
@@ -234,7 +222,9 @@ def interp_trajectory(query_ts: Array, knot_ts: Array, knot_poses: Array,
     and with numpy inputs alone on CUDA (raises without a GPU)."""
     # NOTE: pass timestamps relative to a frame-local epoch: f32 cannot
     # carry absolute nanosecond epochs.
-    device = _device_of(device, knot_poses, knot_ts, query_ts)
+    from .fused import resolve_device
+
+    device = resolve_device(device, knot_poses, knot_ts, query_ts)
     knot_poses = torch.as_tensor(knot_poses).to(device)
     query_ts = torch.as_tensor(query_ts).to(device, torch.float32)
     knot_ts = torch.as_tensor(knot_ts).to(device, torch.float32)

@@ -39,6 +39,7 @@ from ..io.sources import (
     populate_extrinsics,
 )
 from ..io import device_engine as de
+from ..ops.fused import resolve_device
 from ..ops.packet_format import PacketFormat
 from ..utils import native
 from .client import Client, init_client
@@ -381,8 +382,8 @@ class SensorScanSource(ScanSource):
             self.engine_used = [
                 "device" if use_device and de.supports_device_decode(i)
                 else "numpy" for i in infos]
-            self.device = (de._device(device) if "device" in self.engine_used
-                           else None)
+            self.device = (resolve_device(device)
+                           if "device" in self.engine_used else None)
             if self.device is not None and self.device.type == "cuda" \
                     and not torch.cuda.is_available():
                 raise RuntimeError(f"CUDA is not available for device "

@@ -46,7 +46,8 @@ import numpy as np
 import torch
 
 from ..kernels.icp_nn import IcpIndex, build_icp_index, icp_nn
-from ..ops.pose import _device_of, _hat
+from ..ops.fused import resolve_device
+from ..ops.pose import _hat
 from ..utils import profiling
 from .device_map import DeviceVoxelMap
 from .kiss_icp import KissConfig, KissICP
@@ -305,7 +306,7 @@ class DeviceICP(KissICP):
 
     def __init__(self, config: Optional[KissConfig] = None, device=None):
         super().__init__(config)
-        self.device = _device_of(device)
+        self.device = resolve_device(device)
         c = self.config
         self.local_map = DeviceVoxelMap(c.voxel_size, c.max_range,
                                         c.max_points_per_voxel, self.device)

@@ -4,9 +4,9 @@ writeback, plus localization against a prior map.
 Rebuild of the reference mapping layer (ref: ouster_mapping/src/
 slam_engine.cpp:22, kiss_slam.cpp:72-128, kiss_localization.cpp,
 deskew_method.cpp). The registration runs on the host (backend "host",
-slam/kiss_icp.py) or with its Gauss-Newton loop on the device (backend
-"device", slam/device_icp.py); gathering the frame, preprocessing,
-voxelization and the map stay on the host for both.
+slam/kiss_icp.py) or on the device (backend "device", slam/device_icp.py:
+the Gauss-Newton loop, and the map in slam/device_map.py); gathering the
+frame, preprocessing and voxelization stay on the host for both.
 """
 
 from __future__ import annotations
@@ -19,8 +19,8 @@ import numpy as np
 from ..core.constants import ChanField
 from ..core.lidar_scan import LidarScan
 from ..core.types import SensorInfo
+from ..ops.fused import resolve_device
 from ..ops.xyzlut import XYZLut, make_xyz_lut
-from ..ops.pose import _device_of
 from ..utils import profiling
 from .device_icp import DeviceICP
 from .kiss_icp import KissConfig, KissICP
@@ -40,7 +40,7 @@ class SlamConfig:
     # velocity; ref: source_mapping.py --deskew-method)
     deskew: str = "constant_velocity"
     # registration backend: "host" (voxel-hash KissICP) or "device"
-    # (slam/device_icp.py — the GN ICP loop on the device)
+    # (slam/device_icp.py: the GN ICP loop and the voxel map on the device)
     backend: str = "host"
 
 
@@ -107,8 +107,8 @@ class SlamEngine:
                  config: Optional[SlamConfig] = None, device=None):
         self.config = config or SlamConfig()
         _check_backend(self.config.backend)
-        self.device = (_device_of(device) if self.config.backend == "device"
-                       else None)
+        self.device = (resolve_device(device)
+                       if self.config.backend == "device" else None)
         self.infos = infos
         self._luts: List[XYZLut] = [make_xyz_lut(i, use_extrinsics=True)
                                     for i in infos]

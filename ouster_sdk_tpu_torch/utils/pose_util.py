@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from ..ops import pose as _ops
+from ..ops.fused import resolve_device
 
 Numeric = Union[np.ndarray, Sequence[float]]
 
@@ -27,18 +28,18 @@ def _f32(x, device) -> torch.Tensor:
 
 def exp_pose6(xi: Numeric, device=None) -> np.ndarray:
     """se(3) (rot, trans) -> 4x4 (float64), computed in float32."""
-    device = _ops._device_of(device)
+    device = resolve_device(device)
     return _ops.exp_pose(_f32(xi, device)).cpu().numpy().astype(np.float64)
 
 
 def log_pose(T: Numeric, device=None) -> np.ndarray:
-    device = _ops._device_of(device)
+    device = resolve_device(device)
     return _ops.log_pose(_f32(T, device)).cpu().numpy().astype(np.float64)
 
 
 def pose_interp(t, pose0: Numeric, pose1: Numeric,
                 device=None) -> np.ndarray:
-    device = _ops._device_of(device)
+    device = resolve_device(device)
     return _ops.interp_pose(_f32(t, device), _f32(pose0, device),
                             _f32(pose1, device)).cpu().numpy() \
         .astype(np.float64)
@@ -191,7 +192,7 @@ class Trajectory:
         base = self.timestamps[0]
         knots_s = (self.timestamps - base) * 1e-9
         query_s = (ts - base) * 1e-9
-        device = _ops._device_of(self.device)
+        device = resolve_device(self.device)
         out = _ops.interp_trajectory(
             _f32(query_s, device), _f32(knots_s, device),
             _f32(self.poses, device)).cpu().numpy().astype(np.float64)

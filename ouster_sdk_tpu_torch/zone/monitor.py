@@ -161,9 +161,9 @@ def zone_occupancy_device(range_img, near_mm, far_mm,
     or tensors). Returns the (Z,) int32 occupancy counts on `device`: the
     one named, else that of the first tensor argument, else CUDA (raises
     without a GPU)."""
-    from ..ops.pose import _device_of
+    from ..ops.fused import resolve_device
 
-    dev = _device_of(device, range_img, near_mm, far_mm)
+    dev = resolve_device(device, range_img, near_mm, far_mm)
     r = _u32_values(range_img, dev)[None]
     near, far = _u32_values(near_mm, dev), _u32_values(far_mm, dev)
     inside = (r > 0) & (r >= near) & (r <= far) & (far > 0)

@@ -4,10 +4,14 @@ default to CUDA and raise without it, and a CPU tensor launches no
 kernel."""
 
 import ast
+import contextlib
+import ctypes
+import importlib
 import os
 import subprocess
 import sys
 import textwrap
+import types
 
 import numpy as np
 import pytest
@@ -539,6 +543,101 @@ def test_cpu_tensors_launch_no_icp_nn_kernel():
     register_points_device(pts + 0.05, None, pts, None, torch.eye(4), 1.0,
                            0.3, voxel_size=1.0)
     assert all(n == 0 for n in nn.launches.values())
+
+
+class _StandInLibrary:
+    """A compiled kernel library's stand-in: every launch symbol records
+    its arguments and returns `code`; every `*_error_string` names the
+    code it is given."""
+
+    def __init__(self, code: int):
+        self.code, self.calls = code, []
+
+    def __getattr__(self, name):
+        if name.endswith("_error_string"):
+            def fn(err):
+                return f"stand-in error {err}".encode()
+        else:
+            def fn(*args):
+                self.calls.append((name, args))
+                return self.code
+        setattr(self, name, fn)     # the binding's types stay on it
+        return fn
+
+
+@pytest.mark.parametrize("module, name, what", [
+    ("planar_project", "_launch", "planar_project"),
+    ("packet_project", "_launch", "packet_project"),
+    ("lutfree_project", "_launch_packet", "lutfree_packet"),
+    ("lutfree_project", "_launch_planar", "lutfree_planar"),
+    ("icp_nn", "_index_launch", "icp_nn index"),
+    ("icp_nn", "_search_launch", "icp_nn"),
+    ("voxel_map", "_launch", "voxel_admit")])
+def test_launcher_raises_the_sources_message(monkeypatch, module, name,
+                                             what):
+    """Each bound launcher enters the device, appends its current stream
+    last, types the symbols, and turns a nonzero return into "<what>
+    launch failed: <message> (<code>)"; 0 raises nothing. The library and
+    the device context are stand-ins, so no GPU is needed."""
+    from ouster_sdk_tpu_torch.kernels import build
+
+    launch = getattr(importlib.import_module(
+        f"ouster_sdk_tpu_torch.kernels.{module}"), name)
+    entered = []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(d)
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=0xBEEF))
+    cuda = torch.device("cuda")
+    for code in (0, 7):
+        lib = _StandInLibrary(code)
+        monkeypatch.setattr(build, "load", lambda source: lib)
+        monkeypatch.setattr(build, "_typed", {})
+        if code:
+            with pytest.raises(RuntimeError) as e:
+                launch(cuda, 1, 2)
+            assert str(e.value) == \
+                f"{what} launch failed: stand-in error 7 (7)"
+        else:
+            launch(cuda, 1, 2)
+        (symbol, args), = lib.calls
+        assert args == (1, 2, 0xBEEF)
+        fn = getattr(lib, symbol)
+        assert fn.argtypes[-1] is ctypes.c_void_p
+        assert fn.restype is ctypes.c_int
+        typed = [(getattr(lib, n).argtypes, getattr(lib, n).restype)
+                 for n in vars(lib) if n.endswith("_error_string")]
+        assert typed == [([ctypes.c_int], ctypes.c_char_p)]
+    assert entered == [cuda, cuda]
+
+
+@pytest.mark.parametrize("case, expected, message", [
+    ("device", "cuda", "points is on cpu, the frames on cuda"),
+    ("dtype", "cpu", "points must be torch.float64, got torch.float32"),
+    ("shape", "cpu", "points must have shape (4, 3), got (3, 4)"),
+    ("contiguous", "cpu", "points must be contiguous"),
+    ("taken", "cpu", None)])
+def test_operand_check_messages(case, expected, message):
+    from ouster_sdk_tpu_torch.kernels.build import check_operand
+
+    t = {"device": torch.zeros((4, 3), dtype=torch.float64),
+         "dtype": torch.zeros((4, 3), dtype=torch.float32),
+         "shape": torch.zeros((3, 4), dtype=torch.float64),
+         "contiguous": torch.zeros((3, 4), dtype=torch.float64).T,
+         "taken": torch.zeros((4, 3), dtype=torch.float64)}[case]
+    check = lambda: check_operand(t, "points", torch.float64, (4, 3),
+                                  torch.device(expected))
+    if message is None:
+        check()
+    else:
+        with pytest.raises(ValueError) as e:
+            check()
+        assert str(e.value) == message
 
 
 def test_wrapper_rejects_other_devices_and_precisions():

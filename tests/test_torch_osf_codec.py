@@ -291,16 +291,17 @@ def test_stagger_destagger_equal_to_the_jax_package(shape):
 
 
 def test_stagger_index_map_is_cached_and_read_only():
-    pdst._flat_index_map.cache_clear()
+    pdst._index_map.cache_clear()
     x = np.arange(32 * 64, dtype=np.uint16).reshape(32, 64)
     shifts = [3, 2, 1, 0] * 8
     a = pdst.stagger(shifts, x)
     b = pdst.stagger(np.asarray(shifts), x)
-    assert pdst._flat_index_map.cache_info().hits == 1
+    assert pdst._index_map.cache_info().hits == 1
     np.testing.assert_array_equal(a, b)
-    idx = pdst._flat_index_map(tuple(shifts), 64, True)
-    with pytest.raises(ValueError, match="read-only"):
-        idx[0, 0] = 1
+    maps = pdst._index_map(tuple(shifts), 64, True)
+    for idx in (maps.flat, maps.rows):
+        with pytest.raises(ValueError, match="read-only"):
+            idx[0, 0] = 1
     a[0, 0] = 7          # the result is the caller's own
     np.testing.assert_array_equal(pdst.stagger(shifts, x), b)
 

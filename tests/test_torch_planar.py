@@ -30,6 +30,7 @@ from ouster_sdk_tpu.ops.pallas_kernels import \
     unpack_project_planar_batched as jax_project
 from ouster_sdk_tpu.ops.unpack import make_decode_plan as jax_plan
 from ouster_sdk_tpu.ops.xyzlut import make_xyz_lut as jax_make_xyz_lut
+import ouster_sdk_tpu_torch.ops.destagger as pdst
 from ouster_sdk_tpu_torch.ops import planar_kernels as pk
 from ouster_sdk_tpu_torch.ops.destagger import destagger, destagger_torch
 from ouster_sdk_tpu_torch.ops.unpack import make_decode_plan
@@ -264,3 +265,13 @@ def test_destagger_matches():
     np.testing.assert_array_equal(
         destagger_torch(torch.from_numpy(xyz), shifts).numpy(),
         np.asarray(want))
+    # the host and device paths share one map per (shifts, w, inverse),
+    # the device path its copy on the device: a second call with the same
+    # shifts builds and copies nothing
+    pdst._index_map.cache_clear()
+    destagger(pinfo, img)
+    first = destagger_torch(torch.from_numpy(xyz), np.asarray(shifts))
+    again = destagger_torch(torch.from_numpy(xyz), list(shifts))
+    assert pdst._index_map.cache_info().hits == 2
+    assert pdst._index_map.cache_info().misses == 1
+    np.testing.assert_array_equal(again.numpy(), first.numpy())
