@@ -84,15 +84,18 @@ surfaces 5-80 m away) at 128x2048 dual, every column ray-cast from the
 sensor's pose at its own time while a vehicle speeds up from rest to 1 m
 and 1 degree a frame, written with io/save.scan_to_packets and the pcap
 writer -> open_source -> SlamEngine(SlamConfig(backend="device")) (the
-Gauss-Newton loop on the card around the icp_nn kernels: the map's voxel
-index built once a registration, one search an iteration) -> per-column
-poses in each scan, and the host backend in turns; the device trajectory
-is held to the ground truth (translation delta <= 0.05 m a frame once the
-vehicle cruises) and to the host one (<= 0.05 m), a run with TF32 allowed
-to the same bits, the run's search launches to its Gauss-Newton
-iterations and its index builds to its registrations; scans/s of both
-backends and the layers (gather, preprocess, voxelize, map copy, icp_nn
-search and index, Gauss-Newton step and syncs, map update) are printed.
+frame gathered on the card by slam_gather; the Gauss-Newton loop on the
+card around the icp_nn kernels: the map's voxel index built once a
+registration, one search an iteration) -> per-column poses in each scan,
+and the host backend in turns; the device trajectory is held to the
+ground truth (translation delta <= 0.05 m a frame once the vehicle
+cruises) and to the host one (<= 0.05 m), a run with TF32 allowed to the
+same bits, the run's search launches to its Gauss-Newton iterations, its
+index builds to its registrations and its gather launches to its scans;
+scans/s of both backends and the layers (gather, preprocess, voxelize,
+map copy, icp_nn search and index, Gauss-Newton step and syncs, map
+update) are printed, and slam_gather is held to its plain version and
+to the host gather and timed at 128x2048.
 Then icp_nn is held bit-equal (indices and distances), with a prebuilt
 index and in the one call, to its plain version at the SLAM run's largest
 map, at 8192 x 524288 yard points and on dense, tied, masked, empty and
@@ -3845,6 +3848,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     (`run`), the ground truth relative to the first frame (`truth`) and
     the capture (`path`)."""
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.kernels import slam_gather as sg
     from ouster_sdk_tpu_torch.kernels import voxel_map as vm
     from ouster_sdk_tpu_torch.slam import device_icp as di
     from ouster_sdk_tpu_torch.slam import device_map as dm
@@ -3965,11 +3969,13 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     warm = int(torch.cuda.current_device() not in di._CAPTURE.by_device)
     nn.reset_launches()
     vm.reset_launches()
+    sg.reset_launches()
     dm.voxel_admit = kept_admit
     try:
         dev_poses, frames, secs = drive("device", keep=range(SLAM_FRAMES))
     finally:
         dm.voxel_admit = vm.voxel_admit
+    gather_launches = sg.launches["slam_gather"]
     launches = nn.launches["icp_nn"]
     index_launches = nn.launches["icp_nn_index"]
     admit_launches = vm.launches["voxel_admit"]
@@ -4018,7 +4024,7 @@ def _run_slam(torch, port, dev, tmp) -> dict:
           f"+ {warm} warm-up step")
     traced_n = {name: sum(c.n for c in traced.counts if c.name == name)
                 for name in ("icp.graph_captures", "icp.graph_replays",
-                             "icp.gn_iterations")}
+                             "icp.gn_iterations", "slam.device_gathers")}
     captures, replays = (traced_n["icp.graph_captures"],
                          traced_n["icp.graph_replays"])
     check(tf32_launches == captures == registrations,
@@ -4033,6 +4039,9 @@ def _run_slam(torch, port, dev, tmp) -> dict:
     check(admit_launches == SLAM_FRAMES,
           f"voxel_admit launches {admit_launches} != map updates "
           f"{SLAM_FRAMES}")
+    check(gather_launches == traced_n["slam.device_gathers"] == SLAM_FRAMES,
+          f"slam_gather launches {gather_launches}, traced device gathers "
+          f"{traced_n['slam.device_gathers']}, scans {SLAM_FRAMES}")
     check(np.array_equal(tf32_poses, dev_poses),
           "the device trajectory changed with allow_tf32 = True")
     check(len(frame_syncs) == SLAM_FRAMES,
@@ -4141,10 +4150,92 @@ def _run_slam(torch, port, dev, tmp) -> dict:
         init.to(torch.float32), src.to(torch.float32)), map=mp,
         voxel=kw["voxel_size"], reg=big)
     print(_voxel_admit_line(_voxel_admit_times(torch, vm, admit["args"])))
+    print(_slam_gather_line(_slam_gather_times(torch, se, sg, info,
+                                               kept[-1]), gather_launches))
     return dict(launches=launches, index_launches=index_launches,
                 largest=largest, gathered=gathered, frames=frames,
                 info=info, scans=[kept[YARD_RAMP], kept[-1]], run=kept,
                 truth=gt, path=path)
+
+
+def _slam_gather_times(torch, se, sg, info, scan) -> dict:
+    """slam_gather at the SLAM run's shape, on one of its scans (`scan`,
+    its own column poses, the middle one's inverse as the mid pose): the
+    kernel against its plain version on the card and on the CPU (the same
+    count; the points within 1e-12 m, and whether bit-equal), and the
+    device backend's gather against the host backend's (the same count,
+    the points within 1e-12 m). Times: the kernel's device time (three
+    kernels a call; device_ms), their split (torch.profiler), the plain
+    version on the card (CUDA events), and the whole _gather_frame of
+    either backend on the host clock (copies in and back included; least
+    and median of 7). The bound: the bytes (RANGE, status, column poses,
+    mid pose and the f64 LUT read once, the points and the count written
+    once) over the HBM rate."""
+    cfg = se.SlamConfig()
+    lo, hi = cfg.min_range, cfg.max_range
+    mid_inv = np.linalg.inv(scan.pose[scan.w // 2])
+    dev = se.SlamEngine([info], se.SlamConfig(backend="device",
+                                              voxel_size=SLAM_VOXEL))
+    host = se.SlamEngine([info], se.SlamConfig(voxel_size=SLAM_VOXEL))
+    ops = (*dev._stage(scan, mid_inv), dev._device_lut(0))
+    points, count = sg.slam_gather(*ops, lo, hi)
+    plain, plain_n = sg.slam_gather_reference(*ops, lo, hi)
+    cpu, cpu_n = sg.slam_gather(*(t.cpu() for t in ops), lo, hi)
+    torch.cuda.synchronize()
+    n = int(count[0])
+    got = points[:n].cpu()
+    check(n == int(plain_n[0]) == int(cpu_n[0]) > 0,
+          f"slam_gather count {n}, plain on the card {int(plain_n[0])}, "
+          f"on the CPU {int(cpu_n[0])}")
+    err = max(float((got - plain.cpu()).abs().max()),
+              float((got - cpu).abs().max()))
+    check(err <= 1e-12, f"slam_gather {err} m from its plain version")
+    bits = torch.equal(got, plain.cpu()) and torch.equal(got, cpu)
+    want = host._gather_frame([scan], mid_inv)
+    have = dev._gather_frame([scan], mid_inv)
+    check(have.shape == want.shape == (n, 3),
+          f"device gather {have.shape}, host gather {want.shape}, kernel "
+          f"{n} points")
+    host_err = float(np.abs(have - want).max())
+    check(host_err <= 1e-12, f"device gather {host_err} m from the host's")
+    ms = device_ms(lambda: sg.slam_gather(*ops, lo, hi))
+    split = kernel_profile(lambda: sg.slam_gather(*ops, lo, hi))
+    plain_ms = cuda_ms(lambda: sg.slam_gather_reference(*ops, lo, hi),
+                       iters=1, windows=3, warm=1)[0]
+
+    def host_ms(eng):
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            eng._gather_frame([scan], mid_inv)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), float(np.median(times))
+
+    h, w = scan.h, scan.w
+    nbytes = h * w * (4 + 48) + w * (4 + 128) + 128 + n * 24 + 4
+    return dict(ms=ms, split=split, plain_ms=plain_ms, n=n, h=h, w=w,
+                bound_ms=nbytes / PEAK_BYTES_PER_S * 1e3, nbytes=nbytes,
+                err=err, bits=bits, host_err=host_err,
+                device_gather_ms=host_ms(dev), host_gather_ms=host_ms(host))
+
+
+def _slam_gather_line(t, launches: int) -> str:
+    split = ", ".join(f"{name} {us / max(count, 1):.2f} us"
+                      for name, count, us in t["split"])
+    return (f"slam_gather ({t['h']}x{t['w']}, a SLAM run's scan, {t['n']} "
+            f"points; device time of the three kernels, device_ms): "
+            f"{t['ms'][0]:.4f} ms (min {t['ms'][1]:.4f}, max "
+            f"{t['ms'][2]:.4f}), bound {t['bound_ms']:.5f} ms (bytes: "
+            f"{t['nbytes']}), {t['bound_ms'] / t['ms'][0]:.2%} of bound; "
+            f"profiler split: {split or 'no device records'}; plain on the "
+            f"card {t['plain_ms']:.3f} ms; {t['err']:.3g} m from the plain "
+            f"version (bit-equal: {t['bits']}), device gather "
+            f"{t['host_err']:.3g} m from the host gather; whole "
+            f"_gather_frame, host clock, least / median of 7: device "
+            f"backend {t['device_gather_ms'][0]:.3f} / "
+            f"{t['device_gather_ms'][1]:.3f} ms, host backend "
+            f"{t['host_gather_ms'][0]:.3f} / {t['host_gather_ms'][1]:.3f} "
+            f"ms; launches in the SLAM run {launches} [{CARD}]")
 
 
 def _voxel_admit_times(torch, vm, args) -> dict:

@@ -5,8 +5,10 @@ Rebuild of the reference mapping layer (ref: ouster_mapping/src/
 slam_engine.cpp:22, kiss_slam.cpp:72-128, kiss_localization.cpp,
 deskew_method.cpp). The registration runs on the host (backend "host",
 slam/kiss_icp.py) or on the device (backend "device", slam/device_icp.py:
-the Gauss-Newton loop, and the map in slam/device_map.py); gathering the
-frame, preprocessing and voxelization stay on the host for both.
+the Gauss-Newton loop, and the map in slam/device_map.py). The device
+backend also gathers the frame on its device (kernels/slam_gather.py), in
+float64; the host backend gathers it in numpy. Preprocessing and
+voxelization stay on the host for both.
 """
 
 from __future__ import annotations
@@ -15,10 +17,12 @@ from dataclasses import dataclass
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from ..core.constants import ChanField
 from ..core.lidar_scan import LidarScan
 from ..core.types import SensorInfo
+from ..kernels.slam_gather import slam_gather
 from ..ops.fused import resolve_device
 from ..ops.xyzlut import XYZLut, make_xyz_lut
 from ..utils import profiling
@@ -112,6 +116,11 @@ class SlamEngine:
         self.infos = infos
         self._luts: List[XYZLut] = [make_xyz_lut(i, use_extrinsics=True)
                                     for i in infos]
+        # the device backend's gather: each LUT as (6, h, w) f64 planes on
+        # the device, made at its first use, and one staging buffer
+        # (pinned on CUDA) reused by every sensor and scan
+        self._device_luts: List[Optional[torch.Tensor]] = [None] * len(infos)
+        self._staging: Optional[torch.Tensor] = None
         self._kiss: Optional[KissICP] = None
         self._last_pose = (self.config.initial_pose.copy()
                            if self.config.initial_pose is not None
@@ -156,8 +165,12 @@ class SlamEngine:
     def _gather_frame(self, scans: Sequence[Optional[LidarScan]],
                       mid_pose_inv: np.ndarray) -> np.ndarray:
         """Valid world points from all sensors, relative to the mid pose
-        (ref: kiss_slam.cpp:96-111 + core::dewarp)."""
+        (ref: kiss_slam.cpp:96-111 + core::dewarp), (N, 3) float64: on the
+        engine's device for the device backend, in numpy for the host
+        backend."""
         with profiling.span("slam.gather", _first_frame_id(scans)):
+            if self.device is not None:
+                return self._gather_on_device(scans, mid_pose_inv)
             pts = []
             for s, lut in zip(scans, self._luts):
                 if s is None:
@@ -176,6 +189,67 @@ class SlamEngine:
             if not pts:
                 return np.zeros((0, 3))
             return np.concatenate(pts, axis=0)
+
+    def _gather_on_device(self, scans: Sequence[Optional[LidarScan]],
+                          mid_pose_inv: np.ndarray) -> np.ndarray:
+        """The host path's points, gathered by kernels/slam_gather on the
+        engine's device: a sensor's mid pose, column poses, RANGE and
+        status copied in at once through the staging buffer, its count
+        and then its points copied back (two waits a sensor)."""
+        pts = []
+        for k, s in enumerate(scans):
+            if s is None:
+                continue
+            points, count = slam_gather(
+                *self._stage(s, mid_pose_inv), self._device_lut(k),
+                self.config.min_range, self.config.max_range)
+            n = int(count[0])
+            pts.append(points[:n].to("cpu", copy=True).numpy())
+        profiling.count("slam.device_gathers")
+        if not pts:
+            return np.zeros((0, 3))
+        return pts[0] if len(pts) == 1 else np.concatenate(pts, axis=0)
+
+    def _stage(self, s: LidarScan, mid_pose_inv: np.ndarray):
+        """mid_inv (4, 4) f64, poses (w, 4, 4) f64, range (h, w) and status
+        (w,) int32 (the uint32 bits) of scan `s` on the engine's device,
+        copied in from the staging buffer, whose previous copy has been
+        waited for (the previous gather read its count)."""
+        h, w = s.h, s.w
+        sizes = (16 * 8, w * 16 * 8, h * w * 4, w * 4)
+        nbytes = sum(sizes)
+        if self._staging is None or self._staging.numel() < nbytes:
+            self._staging = torch.empty(
+                nbytes, dtype=torch.uint8,
+                pin_memory=self.device.type == "cuda")
+        host = self._staging[:nbytes].numpy()
+        ends = np.cumsum(sizes).tolist()
+        mid, poses, rng, status = (host[e - n:e]
+                                   for n, e in zip(sizes, ends))
+        mid.view(np.float64)[:] = mid_pose_inv.ravel()
+        poses.view(np.float64).reshape(w, 4, 4)[:] = s.pose
+        rng.view(np.uint32).reshape(h, w)[:] = s.field(ChanField.RANGE)
+        status.view(np.uint32)[:] = s.status
+        dev = self._staging[:nbytes].to(self.device, non_blocking=True)
+        mid, poses, rng, status = (dev[e - n:e]
+                                   for n, e in zip(sizes, ends))
+        return (rng.view(torch.int32).view(h, w),
+                status.view(torch.int32),
+                poses.view(torch.float64).view(w, 4, 4),
+                mid.view(torch.float64).view(4, 4))
+
+    def _device_lut(self, k: int) -> torch.Tensor:
+        """Sensor k's LUT on the engine's device: direction x, y, z, then
+        offset x, y, z, each an (h, w) f64 plane."""
+        lut = self._device_luts[k]
+        if lut is None:
+            host = self._luts[k]
+            planes = np.ascontiguousarray(np.concatenate(
+                [np.moveaxis(host.direction, -1, 0),
+                 np.moveaxis(host.offset, -1, 0)]))
+            lut = self._device_luts[k] = torch.from_numpy(planes).to(
+                self.device)
+        return lut
 
     def update(self, scan_set) -> None:
         """(ref: kiss_slam.cpp:72-128)"""

@@ -37,7 +37,10 @@ dense, tied, masked, empty and saturated inputs too; register_points_device on t
 of the CPU and gives the same bits with TF32 allowed, and its CUDA graph
 (one capture a registration, one replay an iteration) gives the eager
 step's bits after every iteration; the SLAM engine's device backend
-captures once a registration and replays once an iteration; normals and
+captures once a registration and replays once an iteration, and gathers
+every scan's frame through kernels/csrc/slam_gather.cu, whose count, mask
+and order equal its plain version's bit for bit (points within 1e-12 m)
+and whose LUT product is XYZLut's bits; normals and
 voxel downsampling on the card agree with the CPU within stated bounds."""
 
 import numpy as np
@@ -1167,6 +1170,7 @@ def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
     0.05 m of the host backend's."""
     import chip_smoke as cs
     from ouster_sdk_tpu_torch.kernels import icp_nn as nn
+    from ouster_sdk_tpu_torch.kernels import slam_gather as sg
     from ouster_sdk_tpu_torch.slam import SlamConfig, SlamEngine
 
     info = cs.synth_info(cs.MAIN_PROFILE, w=512, h=32)
@@ -1177,6 +1181,7 @@ def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
     for backend in ("device", "host"):
         eng = SlamEngine([info], SlamConfig(backend=backend, voxel_size=1.0))
         nn.reset_launches()
+        sg.reset_launches()
         iters, regs, out = 0, 0, []
 
         def drive():
@@ -1194,8 +1199,99 @@ def test_slam_engine_device_backend_runs_on_the_card(cuda, tmp_path):
             assert nn.launches["icp_nn"] == counts["icp.graph_captures"] \
                 == regs > 0
             assert counts["icp.graph_replays"] == iters > 0
+            # every scan's frame gathered on the card, one launch a scan
+            assert sg.launches["slam_gather"] == \
+                counts["slam.device_gathers"] == len(out) > 0
+        else:
+            assert sg.launches["slam_gather"] == 0
+            assert "slam.device_gathers" not in counts
     assert np.abs(poses["device"][:, :3, 3]
                   - poses["host"][:, :3, 3]).max() <= 0.05
+
+
+def _gather_operands(h: int, w: int, seed: int):
+    """One sensor's gather on the CPU: ranges up to 120 m (a tenth zero,
+    every seventh at or one unit beside 5 m and 100 m), a fifth of the
+    columns invalid, per-column poses 100 m from the origin, a random
+    LUT; returns (XYZLut, range, status, (range, status, poses, mid_inv,
+    lut) tensors)."""
+    from ouster_sdk_tpu_torch.ops.xyzlut import XYZLut
+
+    rng = np.random.default_rng(seed)
+    r = rng.integers(1, 120_000, (h, w)).astype(np.uint32)
+    r[rng.random((h, w)) < 0.1] = 0
+    r.flat[::7] = np.resize([4999, 5000, 5001, 99999, 100000, 100001],
+                            r.flat[::7].size)
+    status = (rng.random(w) >= 0.2).astype(np.uint32) | 6
+    direction = rng.normal(size=(h, w, 3))
+    direction *= 1e-3 / np.linalg.norm(direction, axis=-1, keepdims=True)
+    lut = XYZLut(direction=direction,
+                 offset=rng.normal(0.0, 1e-3, (h, w, 3)))
+    poses = _poses(1, w, seed)[0].astype(np.float64)
+    poses[:, :3, 3] += 100.0
+    mid_inv = np.linalg.inv(poses[w // 2])
+    planes = np.ascontiguousarray(np.concatenate(
+        [np.moveaxis(lut.direction, -1, 0), np.moveaxis(lut.offset, -1, 0)]))
+    ops = (torch.from_numpy(r.view(np.int32)),
+           torch.from_numpy(status.view(np.int32)), torch.from_numpy(poses),
+           torch.from_numpy(mid_inv), torch.from_numpy(planes))
+    return lut, r, status, ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(128, 2048), (40, 496)])
+def test_slam_gather_matches_plain_on_the_card(cuda, h, w):
+    """kernels/csrc/slam_gather.cu against its plain version on the CPU:
+    the same count; the points within 1e-12 m; with identity poses the
+    points are XYZLut's product of the pixels the host's mask keeps, in
+    numpy's order, bit for bit (the mask, the order and the projection)."""
+    from ouster_sdk_tpu_torch.kernels import slam_gather as sg
+
+    lut, r, status, ops = _gather_operands(h, w, h + w)
+    want, n_want = sg.slam_gather(*ops, 5.0, 100.0)
+    dev = [t.to(cuda) for t in ops]
+    sg.reset_launches()
+    got, n_got = sg.slam_gather(*dev, 5.0, 100.0)
+    eye = torch.eye(4, dtype=torch.float64, device=cuda)
+    ident, n_ident = sg.slam_gather(dev[0], dev[1],
+                                    eye.expand(w, 4, 4).contiguous(), eye,
+                                    dev[4], 5.0, 100.0)
+    torch.cuda.synchronize()
+    assert sg.launches["slam_gather"] == 2
+    n = int(n_got[0])
+    assert n == int(n_want[0]) == int(n_ident[0]) == want.shape[0] > 0
+    assert (got[:n].cpu() - want).abs().max() <= 1e-12
+    r_m = r * 0.001
+    valid = (r > 0) & (status & 1).astype(bool)[None, :] & (r_m > 5.0) \
+        & (r_m < 100.0)
+    assert np.array_equal(ident[:n].cpu().numpy(), lut(r)[valid])
+
+
+@pytest.mark.cuda
+def test_slam_gather_rejects_what_it_does_not_take(cuda):
+    """A wrong dtype, device or shape is refused with check_operand's
+    message, and nothing is launched."""
+    from ouster_sdk_tpu_torch.kernels import slam_gather as sg
+
+    _, _, _, ops = _gather_operands(16, 64, 3)
+    dev = [t.to(cuda) for t in ops]
+    sg.reset_launches()
+    for k, bad, message in (
+            (0, dev[0].to(torch.int64),
+             "range must be torch.int32, got torch.int64"),
+            (1, ops[1], "status is on cpu, the frames on cuda:0"),
+            (2, dev[2].to(torch.float32),
+             "poses must be torch.float64, got torch.float32"),
+            (4, dev[4][:, :, 1:].contiguous(),
+             "lut must have shape (6, 16, 64), got (6, 16, 63)"),
+            (4, dev[4].transpose(1, 2).contiguous().transpose(1, 2),
+             "lut must be contiguous")):
+        args = list(dev)
+        args[k] = bad
+        with pytest.raises(ValueError) as e:
+            sg.slam_gather(*args, 5.0, 100.0)
+        assert str(e.value) == message
+    assert sg.launches["slam_gather"] == 0
 
 
 @pytest.mark.cuda

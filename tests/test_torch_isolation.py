@@ -545,6 +545,27 @@ def test_cpu_tensors_launch_no_icp_nn_kernel():
     assert all(n == 0 for n in nn.launches.values())
 
 
+def test_cpu_tensors_launch_no_slam_gather_kernel():
+    """The device backend's gather on the CPU takes the plain version; a
+    tensor on another device is refused."""
+    from ouster_sdk_tpu_torch.kernels import slam_gather as sg
+
+    _, pinfo = infos(DUAL)
+    eng = pt.slam.SlamEngine([pinfo], pt.slam.SlamConfig(backend="device"),
+                             device="cpu")
+    scan = pt.LidarScan(pinfo)
+    scan.field("RANGE")[:] = 20000
+    scan.status[:] = 1
+    sg.reset_launches()
+    assert set(sg.launches) == set(sg.CASES)
+    assert eng._gather_frame([scan], np.eye(4)).shape == (
+        scan.h * scan.w, 3)
+    assert all(n == 0 for n in sg.launches.values())
+    meta = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA, got meta"):
+        sg.slam_gather(meta, meta[0], meta, meta, meta, 5.0, 100.0)
+
+
 class _StandInLibrary:
     """A compiled kernel library's stand-in: every launch symbol records
     its arguments and returns `code`; every `*_error_string` names the
@@ -572,7 +593,8 @@ class _StandInLibrary:
     ("lutfree_project", "_launch_planar", "lutfree_planar"),
     ("icp_nn", "_index_launch", "icp_nn index"),
     ("icp_nn", "_search_launch", "icp_nn"),
-    ("voxel_map", "_launch", "voxel_admit")])
+    ("voxel_map", "_launch", "voxel_admit"),
+    ("slam_gather", "_launch", "slam_gather")])
 def test_launcher_raises_the_sources_message(monkeypatch, module, name,
                                              what):
     """Each bound launcher enters the device, appends its current stream

@@ -18,6 +18,11 @@ Tolerances, each with its reason:
 - The host backend (KissICP, SlamEngine(backend="host"),
   LocalizationEngine) is a numpy copy: equal to the JAX package's bit for
   bit.
+- The device backend's frame gather on the CPU (kernels/slam_gather's
+  plain version) against the host backend's numpy gather: the same points
+  in the same order within 1e-12 m (the mask and the LUT product are the
+  same operations; the relative poses and the rotation sum in another
+  order than numpy's einsum).
 The pose helpers, deskew, time correction and profiling are held in
 tests/test_torch_pose_util.py.
 """
@@ -44,6 +49,7 @@ from ouster_sdk_tpu_torch.kernels.icp_nn import (build_icp_index, icp_nn,
 from ouster_sdk_tpu_torch.slam import device_icp as tdev
 from ouster_sdk_tpu_torch.slam import engine as tengine
 from ouster_sdk_tpu_torch.slam import kiss_icp as tkiss
+from ouster_sdk_tpu_torch.utils.pose_util import interp_pose_pair
 from test_slam import _random_world
 
 CFG = dict(voxel_size=0.5, min_range=0.5, max_range=200)
@@ -347,6 +353,90 @@ def test_slam_engines_match_the_jax_package():
         lt.update([s])
         lj.update([j])
         assert np.array_equal(lt.last_pose, lj.last_pose)
+
+
+GATHER_CASES = ("zero_ranges", "status_cleared", "range_limits",
+                "all_invalid", "none_scan", "two_sensors", "localization")
+
+
+def _gather_scan(info, seed: int):
+    """A scan of `info`: ranges up to 120 m, a tenth of them zero, a fifth
+    of the columns invalid, and the column poses of a turn 120 m from the
+    origin."""
+    rng = np.random.default_rng(seed)
+    s = pt.LidarScan(info)
+    r = rng.integers(1, 120_000, (s.h, s.w))
+    r[rng.random(r.shape) < 0.1] = 0
+    s.field("RANGE")[:] = r
+    s.status[:] = rng.random(s.w) >= 0.2
+    p0 = tkiss.se3_exp(rng.normal(0.0, 0.3, 6))
+    p0[:3, 3] += [120.0, -40.0, 3.0]
+    p1 = p0 @ tkiss.se3_exp(rng.normal(0.0, 0.05, 6))
+    s.pose[:] = interp_pose_pair(np.linspace(0.0, 1.0, s.w), p0, p1)
+    return s
+
+
+@pytest.mark.parametrize("case", GATHER_CASES)
+def test_device_gather_equals_the_host_gather(case):
+    """SlamEngine._gather_frame of the device backend on the CPU against
+    the host backend's on the same scans: the same N and point order,
+    within 1e-12 m; the array returned is the caller's (the next gather
+    leaves it alone)."""
+    info = cs.synth_info(cs.MAIN_PROFILE, w=256, h=16)
+    infos = [info]
+    if case in ("none_scan", "two_sensors"):
+        other = copy.deepcopy(info)
+        other.extrinsic = tkiss.se3_exp(np.array([0.4, -1.2, 0.3, 0.1,
+                                                  -0.05, 1.4]))
+        infos.append(other)
+    scans = [_gather_scan(i, 7 + k) for k, i in enumerate(infos)]
+    s = scans[0]
+    r = s.field("RANGE")
+    if case == "zero_ranges":
+        r[:, ::3] = 0
+        r[5] = 0
+    elif case == "status_cleared":
+        s.status[::4] = 0
+        s.status[1::4] = 2           # another bit set, bit 0 clear
+    elif case == "range_limits":
+        limits = np.array([4999, 5000, 5001, 99999, 100000, 100001])
+        r[:] = np.resize(limits, r.size).reshape(r.shape)
+    elif case == "all_invalid":
+        s.status[:] = 0
+    elif case == "none_scan":
+        scans[0] = None
+    mid_inv = np.linalg.inv(scans[-1].pose[info.format.columns_per_frame
+                                           // 2])
+    cfg = dict(voxel_size=1.0)
+    if case == "localization":
+        prior = np.random.default_rng(2).uniform([-40, -40, 0], [40, 40, 8],
+                                                 (3000, 3))
+        host = tengine.LocalizationEngine(infos, prior,
+                                          tengine.SlamConfig(**cfg))
+        dev = tengine.LocalizationEngine(
+            infos, prior, tengine.SlamConfig(backend="device", **cfg),
+            device="cpu")
+    else:
+        host = tengine.SlamEngine(infos, tengine.SlamConfig(**cfg))
+        dev = tengine.SlamEngine(
+            infos, tengine.SlamConfig(backend="device", **cfg), device="cpu")
+    want = host._gather_frame(scans, mid_inv)
+    got = dev._gather_frame(scans, mid_inv)
+    assert isinstance(got, np.ndarray) and got.dtype == np.float64
+    assert got.shape == want.shape
+    if case == "all_invalid":
+        assert got.shape == (0, 3)
+    else:
+        assert len(got) > 0
+        assert np.abs(got - want).max() <= 1e-12
+    if case == "range_limits":
+        # 5000 and 100 000 mm lie on the limits: 5001 and 99 999 pass
+        assert len(got) == np.count_nonzero(
+            s.status[None, :] & 1 & np.isin(r, [5001, 99999]))
+    kept = got.copy()
+    dev._gather_frame([_gather_scan(i, 30 + k) for k, i in enumerate(infos)],
+                      mid_inv)
+    assert np.array_equal(got, kept)
 
 
 def test_backend_names_and_devices():

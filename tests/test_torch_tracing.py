@@ -65,6 +65,19 @@ def names(snap) -> set:
     return {s.name for s in snap.spans} | {c.name for c in snap.counts}
 
 
+def test_the_host_backend_gathers_on_the_host(tracer, yard):
+    """The host backend records the gather's span and no device gather."""
+    path, info = yard
+    with tracer.tracing(True):
+        eng = pt.slam.SlamEngine([info], pt.slam.SlamConfig(voxel_size=1.0))
+        for scans in pt.open_source(path, sensor_info=[info],
+                                    device="cpu"):
+            eng.update(scans)
+        slam = tracer.snapshot()
+    assert {"slam.predict", "slam.gather", "slam.preprocess"} <= names(slam)
+    assert "slam.device_gathers" not in names(slam)
+
+
 def test_off_records_nothing_and_the_cost_of_a_span(tracer):
     n = 20000
 
@@ -213,14 +226,19 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
 
         eng = pt.slam.SlamEngine([info], pt.slam.SlamConfig(
             backend="device", voxel_size=1.0), device="cpu")
+        updates = 0
         for scans in pt.open_source(path, sensor_info=[info],
                                     device="cpu"):
             eng.update(scans)
+            updates += 1
         slam = tracer.snapshot()
     assert REPLAY <= names(replay)
     assert ENGINE | {"engine.d2h_copies"} <= names(engine)
     assert SLAM | {"icp.gn_iterations", "icp.host_syncs", "map.host_syncs",
-                   "map.new_voxels"} <= names(slam)
+                   "map.new_voxels", "slam.device_gathers"} <= names(slam)
+    # the device backend gathers every scan's frame on its device
+    assert sum(c.n for c in slam.counts
+               if c.name == "slam.device_gathers") == updates > 0
     # on the CPU the Gauss-Newton loop steps eagerly: no capture, no replay
     assert not CARD_ONLY & names(slam)
     main = threading.get_native_id()
