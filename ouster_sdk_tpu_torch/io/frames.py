@@ -478,6 +478,7 @@ class FrameReader:
         if cached is not None and cached[0] == key:
             return cached[1]
         with profiling.span("frames.capture_scan"):
+            profiling.count("frames.capture_bytes", st.st_size)
             res = (self._native_scan(st.st_size)
                    if native.get_lib() is not None
                    else pcap_scan(self._path))

@@ -30,6 +30,7 @@ import numpy as np
 
 from ..core.lidar_scan import LidarScan
 from ..core.types import SensorInfo
+from ..utils import profiling
 
 
 class IoType(Enum):
@@ -417,33 +418,56 @@ class SingleScanSource:
 DEFAULT_COLLATION_DT_NS = 210_000_000  # 210 ms (ref: scan_source_utils.h:22)
 
 
+def _collation_ts(scan: LidarScan) -> int:
+    return scan.first_valid_column_timestamp() or \
+        scan.first_valid_packet_timestamp()
+
+
 def collate_scans(
     scans: Iterator, n_sensors: int,
     dt_ns: int = DEFAULT_COLLATION_DT_NS,
 ) -> Iterator[LidarScanSet]:
     """Time-collate an iterator of (sensor_idx, LidarScan) into
     LidarScanSets, cutting a set when dt_ns elapses or a sensor repeats
-    (ref: scan_source_utils.cpp Collator)."""
+    (ref: scan_source_utils.cpp Collator).
+
+    A set's first scan is only kept; its time is read when a second scan
+    comes. The collator's work on each later scan (the times read, the
+    cut, the set built) and on the last set is the tracer's span
+    `source.collate`: one a set of two sensors. The pull of the next scan
+    lies outside it."""
     pending: List[Optional[LidarScan]] = [None] * n_sensors
+    start: Optional[LidarScan] = None
     start_ts: Optional[int] = None
 
     for idx, scan in scans:
-        ts = scan.first_valid_column_timestamp() or \
-            scan.first_valid_packet_timestamp()
-        if start_ts is None:
-            start_ts = ts
-        if pending[idx] is not None or (ts - start_ts) > dt_ns:
-            yield LidarScanSet(pending)
-            pending = [None] * n_sensors
-            start_ts = ts
-        pending[idx] = scan
-        if all(s is not None for s in pending):
-            yield LidarScanSet(pending)
-            pending = [None] * n_sensors
-            start_ts = None
+        if start is None:
+            start = pending[idx] = scan
+            if n_sensors == 1:
+                yield LidarScanSet(pending)
+                pending, start = [None], None
+            continue
+        done = None
+        with profiling.span("source.collate"):
+            if start_ts is None:
+                start_ts = _collation_ts(start)
+            ts = _collation_ts(scan)
+            if pending[idx] is not None or (ts - start_ts) > dt_ns:
+                done = LidarScanSet(pending)
+                pending = [None] * n_sensors
+                start, start_ts = scan, ts
+            pending[idx] = scan
+            if all(s is not None for s in pending):
+                done = LidarScanSet(pending)
+                pending = [None] * n_sensors
+                start = start_ts = None
+        if done is not None:
+            yield done
 
     if any(s is not None for s in pending):
-        yield LidarScanSet(pending)
+        with profiling.span("source.collate"):
+            last = LidarScanSet(pending)
+        yield last
 
 
 class Slicer(ScanSource):

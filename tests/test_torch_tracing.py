@@ -269,3 +269,28 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
             assert p.thread == s.thread
             assert p.start_ns <= s.start_ns <= s.end_ns <= p.end_ns
     assert np.isfinite(eng.last_pose).all()
+
+
+def test_a_rig_pass_records_a_collation_a_set_and_the_bytes_scanned(
+        tracer, tmp_path, monkeypatch):
+    """Two sensors of one capture (the benchmark's rig at 16 x 256): one
+    `source.collate` span a set, none open across the pull of a scan, and
+    `frames.capture_bytes` the capture's size once a sensor's reader."""
+    from portbench.lib import rig
+    from test_torch_rig import DATA, SEED, tiny_config
+
+    monkeypatch.setenv("OUSTER_SDK_TPU_DEVICE_DECODE", "1")
+    config = tiny_config()
+    path, metas = rig.write_capture(str(tmp_path), config, DATA, SEED, 4)
+    with tracer.tracing(True):
+        sets = list(pt.open_source(path, meta=metas, device="cpu"))
+        snap = tracer.snapshot()
+    assert len(sets) == 4 and all(None not in list(s) for s in sets)
+    collate = [s for s in snap.spans if s.name == "source.collate"]
+    assert len(collate) == len(sets)
+    # the engine's work lies outside the collation: no span nests in it
+    ids = {s.id for s in collate}
+    assert not [s for s in snap.spans if s.parent in ids]
+    scanned = [c.n for c in snap.counts if c.name == "frames.capture_bytes"]
+    assert scanned == [os.path.getsize(path)] * 2
+    assert sum(s.name == "frames.capture_scan" for s in snap.spans) == 2
