@@ -29,7 +29,13 @@ torch.profiler trace of the pushes must show no device->host copy) and
 OsfDeviceProjector.attach (XYZ through the planar kernel), every scan
 held equal to the port's ScanBatcher over the same packets; its capture is
 the main capture plus three frames with a lost packet, a straggler and an
-open last frame. The scan-source path: open_source(pcap) -> PcapScanSource
+open last frame. The XYZLut path: the main capture -> open_source on the
+card -> XYZLut(info, use_extrinsics=True) of each scan, then of its RANGE2
+as a bare image (xyz_project, one launch and one xyzlut.device_returns a
+return, counted from zero), every XYZ bit-equal to the host float64 LUT;
+the kernel held bit-equal to its plain version on the card and timed
+cold (L2 flushed before each launch) and back to back against its byte
+bound, and a whole return on the card against the host's. The scan-source path: open_source(pcap) -> PcapScanSource
 -> the engine (one DeviceScanIterator a sensor, merged in packet order) ->
 LidarScans, held equal to the same ScanBatcher with the same release
 points, indexed (len and random lookups), and on a two-sensor capture
@@ -217,6 +223,7 @@ PEAK_F64_PER_S = 34e12       # H100 SXM f64 outside the tensor cores
 KERNEL_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/planar_project.cu"
 PACKET_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/packet_project.cu"
 LUTFREE_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/lutfree_project.cu"
+XYZ_SOURCE = "ouster_sdk_tpu_torch/kernels/csrc/xyz_project.cu"
 DF_PROFILE = SINGLE_PROFILE   # the capture with per-pixel angle tables
 PALLAS = "ouster_sdk_tpu/ops/pallas_kernels.py"
 PALLAS_LUTFREE = "ouster_sdk_tpu/ops/pallas_lutfree.py"
@@ -989,6 +996,10 @@ def _run(torch, port, pk, dev, tmp) -> int:
     kernels[0]["launches"] += engine_launches
     print(f"planar_project<planar>: {launches['planar']} launches on the "
           f"planar path + {engine_launches} on the engine path")
+    t0 = time.perf_counter()
+    kernels.append(_run_xyz_project(torch, port, dev,
+                                    *captures[MAIN_PROFILE]))
+    print(f"xyzlut phase: {time.perf_counter() - t0:.1f} s")
     two_sensor = _run_sources(torch, port, tmp, captures[MAIN_PROFILE][0],
                               oracle)
     osf_launches = _run_osf(torch, port, pk, dev, tmp,
@@ -2097,6 +2108,127 @@ def _run_engine(torch, port, pk, dev, tmp, captures, staged) -> int:
         print(f"engine stage materialization (LidarScan + field copies + "
               f"headers) B={B}: {best_m / B * 1e3:.3f} ms/frame [{CARD}]")
     return launches, oracle
+
+
+def _run_xyz_project(torch, port, dev, info, path) -> dict:
+    """XYZLut of engine-decoded scans on the card: the main capture through
+    open_source on the card, then XYZLut(info, use_extrinsics=True) of each
+    scan and of its RANGE2 as a bare image, with xyz_project's launches and
+    `xyzlut.device_returns` counted from zero just before (one each a
+    return), every XYZ bit-equal to the host float64 LUT. The kernel is
+    held bit-equal to its plain version on the card and on the CPU on the
+    last scan's range, and timed: cold (a 64 MB write before each launch
+    evicts the LUT from L2; torch.profiler's device time), back to back
+    (device_ms; the LUT stays in L2), the plain version (CUDA events), and
+    a whole return on the card (copies in and out) and on the host (host
+    clock, least and median of 7). The bound: range (4 B), LUT (48 B) and
+    XYZ (24 B) a pixel over the HBM rate. Returns the `kernels` entry."""
+    import copy
+
+    from ouster_sdk_tpu_torch.kernels import xyz_project as xp
+    from ouster_sdk_tpu_torch.utils import profiling
+
+    linfo = copy.deepcopy(info)
+    ext = np.eye(4)
+    c, s = np.cos(0.3), np.sin(0.3)
+    ext[:2, :2] = [[c, -s], [s, c]]
+    ext[:3, 3] = [1.5, -0.25, 0.2]
+    linfo.extrinsic = ext
+    host = port.make_xyz_lut(linfo, use_extrinsics=True)
+    lut = port.XYZLut(linfo, use_extrinsics=True)
+    scans = [got[0] for got in port.open_source(path, sensor_info=[info])]
+    check(len(scans) > 0 and all(
+        sc.decode_device is not None and sc.decode_device.type == "cuda"
+        for sc in scans), "open_source did not decode on the card")
+    torch.cuda.synchronize()
+    xp.reset_launches()
+    profiling.clear()
+    wrong = 0
+    with profiling.tracing(True):
+        for sc in scans:
+            xyz, xyz2 = lut(sc), lut(sc.field("RANGE2"))
+            wrong += not np.array_equal(
+                xyz.view(np.uint64), host(sc.field("RANGE")).view(np.uint64))
+            wrong += not np.array_equal(
+                xyz2.view(np.uint64),
+                host(sc.field("RANGE2")).view(np.uint64))
+        returns = sum(c.n for c in profiling.snapshot().counts
+                      if c.name == "xyzlut.device_returns")
+    profiling.clear()
+    launched = xp.launches["xyz_project"]
+    check(wrong == 0, f"{wrong} XYZ returns differ from the host f64 LUT")
+    check(launched == returns == 2 * len(scans),
+          f"xyz_project launches {launched}, xyzlut.device_returns "
+          f"{returns}, {2 * len(scans)} returns asked")
+    print(f"XYZLut(info, use_extrinsics=True) over {len(scans)} engine "
+          f"scans of {info.format.pixels_per_column}x"
+          f"{info.format.columns_per_frame} dual (the scan, "
+          f"then its RANGE2): xyz_project launches {launched}, "
+          f"xyzlut.device_returns {returns}, every return bit-equal to the "
+          f"host f64 LUT [{CARD}]")
+
+    last = scans[-1].field("RANGE")
+    h, w = last.shape
+    r = torch.from_numpy(last.view(np.int32)).to(dev)
+    planes = xp.lut_tensor(host.direction, host.offset).to(dev)
+    got = xp.xyz_project(r, planes)
+    plain = xp.xyz_project_reference(r, planes)
+    cpu = xp.xyz_project(r.cpu(), planes.cpu())
+    torch.cuda.synchronize()
+    got = got.cpu()
+    check(torch.equal(got.view(torch.int64), plain.cpu().view(torch.int64))
+          and torch.equal(got.view(torch.int64), cpu.view(torch.int64))
+          and np.array_equal(got.numpy().view(np.uint64),
+                             host(last).view(np.uint64)),
+          "xyz_project is not bit-equal to its plain version and the host")
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    n_cold = 50
+
+    def cold():
+        for _ in range(n_cold):
+            flush.zero_()
+            xp.xyz_project(r, planes)
+
+    # the profiler may drop a few device records: the time is per launch
+    # it recorded
+    rows = [(name, n, us) for name, n, us in kernel_profile(cold)
+            if "xyz_project" in name]
+    check(len(rows) == 1 and 0 < rows[0][1] <= n_cold,
+          f"torch.profiler: no device time for xyz_project ({rows})")
+    ms = rows[0][2] / rows[0][1] / 1e3
+    warm = device_ms(lambda: xp.xyz_project(r, planes))
+    plain_ms = cuda_ms(lambda: xp.xyz_project_reference(r, planes),
+                       iters=20, windows=5, warm=2)[0]
+
+    def host_ms(fn):
+        times = []
+        for _ in range(7):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times), float(np.median(times))
+
+    card_ms = host_ms(lambda: lut(scans[-1]))
+    host_return_ms = host_ms(lambda: host(last))
+    nbytes = h * w * (4 + 48 + 24)
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"xyz_project ({h}x{w}, one return): cold {ms:.5f} ms (device "
+          f"time, torch.profiler, {rows[0][1]} of {n_cold} launches after "
+          f"an L2 flush recorded), "
+          f"back to back {warm[0]:.5f} ms (min {warm[1]:.5f}, max "
+          f"{warm[2]:.5f}), bound {bound_ms:.5f} ms (bytes: {nbytes}), "
+          f"{bound_ms / ms:.1%} of bound cold; plain on the card "
+          f"{plain_ms:.4f} ms; bit-equal to the plain version on the card "
+          f"and the CPU and to the host LUT; a whole return, host clock, "
+          f"least / median of 7: on the card {card_ms[0]:.3f} / "
+          f"{card_ms[1]:.3f} ms, on the host {host_return_ms[0]:.3f} / "
+          f"{host_return_ms[1]:.3f} ms [{CARD}]")
+    return {"name": "xyz_project", "route": "cuda", "source": XYZ_SOURCE,
+            "replaces": "ouster_sdk_tpu_torch/ops/xyzlut.py XYZLut.__call__",
+            "launches": launched, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": None, "warm_ms": warm[0],
+            "return_ms": card_ms[1], "host_return_ms": host_return_ms[1]}
 
 
 def _run_sources(torch, port, tmp, info, oracle):

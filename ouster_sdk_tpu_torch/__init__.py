@@ -185,16 +185,46 @@ def XYZLutFactory(info, use_extrinsics: bool = False):
     scan or range image to (H, W, 3) points (ref: sdk/core/data.py:129
     XYZLut).
 
-    Scans produced by OSF replay carry a device-projected XYZ cache
-    (double-single, <= 0.5 f32 ulp of this host f64 path); when a SCAN is
-    passed and its range content is unchanged since projection, the cache
-    is served instead of re-projecting on the host.
-    OUSTER_SDK_TPU_DEVICE_XYZ=0 disables serving (always recompute in
-    f64). `project.return_xyz(scan, ret)` does the same for either return
-    (0: RANGE, 1: RANGE2); io.derived.filter_xyz projects through it."""
+    Where the float64 product runs, in this order:
+    - Scans produced by OSF replay carry a device-projected XYZ cache
+      (double-single, <= 0.5 f32 ulp of this host f64 path); when a SCAN is
+      passed and its range content is unchanged since projection, the cache
+      is served instead of re-projecting. OUSTER_SDK_TPU_DEVICE_XYZ=0
+      disables serving (always recompute in f64).
+    - A scan the device engine decoded on a CUDA card
+      (LidarScan.decode_device) is projected on that card
+      (ops.xyzlut.XYZLutCard, bit-equal to the host), and so is a bare
+      range image that is a range field of the last scan this LUT
+      projected there (a scan's second return, `scan.field("RANGE2")`).
+      A process forked after CUDA was initialised takes the host path.
+    - Anything else is projected on the host (ops.xyzlut.XYZLut).
+    The route decides where the work runs, never the result: the XYZ is a
+    fresh array the caller owns. `project.return_xyz(scan, ret)` does the
+    same for either return (0: RANGE, 1: RANGE2); io.derived.filter_xyz
+    projects through it."""
+    import weakref
+
+    import torch
+
+    from .ops.xyzlut import XYZLutCard
     from .utils import profiling
 
     lut = make_xyz_lut(info, use_extrinsics)
+    card = XYZLutCard(lut)
+    last = [lambda: None]      # a weak reference to the last card scan
+
+    def card_of(scan):
+        """The CUDA device `scan` was decoded on, if this process can use
+        it; else None."""
+        device = getattr(scan, "decode_device", None)
+        if device is None or device.type != "cuda" \
+                or torch.cuda._is_in_bad_fork():
+            return None
+        return device
+
+    def on_card(rng, device):
+        profiling.count("xyzlut.device_returns")
+        return card(rng, device)
 
     def return_xyz(scan, ret: int):
         with profiling.span("xyzlut", scan.frame_id):
@@ -204,12 +234,33 @@ def XYZLutFactory(info, use_extrinsics: bool = False):
                 hit = scan.cached_xyz(ret, use_extrinsics, rng)
                 if hit is not None:
                     return hit.astype(np.float64)
+            device = card_of(scan)
+            if device is not None and card.takes(rng):
+                last[0] = weakref.ref(scan)
+                return on_card(rng, device)
             return lut(rng)
+
+    def scan_of(rng):
+        """The last card scan if `rng` is one of its range fields."""
+        scan = last[0]()
+        if scan is None or not card.takes(rng):
+            return None
+        fields = (ChanField.RANGE, ChanField.RANGE2)
+        if any(scan.has_field(f) and np.shares_memory(rng, scan.field(f))
+               for f in fields):
+            return scan
+        return None
 
     def project(scan_or_range):
         if hasattr(scan_or_range, "field"):
             return return_xyz(scan_or_range, 0)
-        return lut(np.asarray(scan_or_range))
+        rng = np.asarray(scan_or_range)
+        scan = scan_of(rng)
+        device = card_of(scan) if scan is not None else None
+        if device is not None:
+            with profiling.span("xyzlut"):
+                return on_card(rng, device)
+        return lut(rng)
 
     project.return_xyz = return_xyz
     return project

@@ -244,6 +244,9 @@ class LidarScan:
         # device-projected XYZ cache (attach_xyz_cache): does not
         # participate in equality/serialization
         self._xyz_cache: Dict = {}
+        # the torch.device the device engine decoded the fields on
+        # (decode_device); outside equality and serialization
+        self._decode_device = None
         # deferred pixel-field fill (set_deferred_fields): device routes
         # keep the decoded frame in device memory and run this on first
         # touch.
@@ -305,12 +308,22 @@ class LidarScan:
         self._resolve_deferred()
         state = self.__dict__.copy()
         state.pop("_deferred_lock", None)
+        state.pop("_decode_device", None)
         state["_deferred_fields"] = None
         return state
 
     def __setstate__(self, state):
         self.__dict__.update(state)
         self._deferred_lock = threading.RLock()
+        self._decode_device = None
+
+    @property
+    def decode_device(self):
+        """The torch.device the device engine decoded this scan's fields
+        on; None for a scan from elsewhere (the numpy ScanBatcher, OSF,
+        bags) and for a copy or an unpickled scan. XYZLutFactory projects
+        a scan decoded on a CUDA card on that card."""
+        return getattr(self, "_decode_device", None)
 
     # -- device-projected XYZ cache ----------------------------------------
     def attach_xyz_cache(self, return_idx: int, use_extrinsics: bool,

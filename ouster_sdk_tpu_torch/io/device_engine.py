@@ -102,16 +102,19 @@ def materialize_scan(info: SensorInfo, pf: PacketFormat, plan,
                      host: Dict[str, np.ndarray], k: int, frame_id: int,
                      pkt_ts_row: np.ndarray, pkt_hdrs_row: np.ndarray,
                      first_hdr_row: np.ndarray,
-                     field_types=None) -> LidarScan:
+                     field_types=None,
+                     device: Optional[torch.device] = None) -> LidarScan:
     """Build a LidarScan from one decoded frame: field arrays from the
     decode's output dict on the host (slot k) plus headers read from the
     staged packet-header words, the same population ScanBatcher does per
     packet (ref: lidar_scan.cpp:1324-1372, :1546-1552). Nothing is cast:
-    the decode gave every field its scan dtype."""
+    the decode gave every field its scan dtype. `device`, the device the
+    frame was decoded on, marks the scan (LidarScan.decode_device)."""
     with profiling.span("engine.materialize", int(frame_id)):
         ls = LidarScan(info, field_types=field_types)
         ls.frame_id = int(frame_id)
         ls.sensor_info = info
+        ls._decode_device = device
 
         _populate_pixel_fields(ls, plan, host, k)
 
@@ -212,6 +215,7 @@ def materialize_scan_deferred(info: SensorInfo, pf: PacketFormat, plan,
     ls = LidarScan(info, field_types=field_types)
     ls.frame_id = int(frame_id)
     ls.sensor_info = info
+    ls._decode_device = next(iter(dev.values())).device
 
     ts, m_id, status, _ = _host_column_headers(plan, colhdr)
     ls.timestamp[:] = ts
@@ -527,12 +531,12 @@ class DeviceScanIterator:
     def id_error_count(self) -> int:
         return self._reader.id_error_count
 
-    def _materialize(self, batch, k: int,
-                     host: Dict[str, np.ndarray]) -> LidarScan:
+    def _materialize(self, batch, k: int, host: Dict[str, np.ndarray],
+                     device: torch.device) -> LidarScan:
         return materialize_scan(
             self.info, self.pf, self.plan, host, k,
             int(batch.frame_ids[k]), batch.pkt_ts[k], batch.pkt_hdrs[k],
-            batch.first_hdr[k], self._field_types)
+            batch.first_hdr[k], self._field_types, device)
 
     def _aux_only_scan(self, inst: _FrameInstance) -> LidarScan:
         """A frame the batcher opened on an aux packet and released at a
@@ -565,7 +569,7 @@ class DeviceScanIterator:
             del dev
             stats["batches"] += 1
             for k in range(batch.frame_ids.size):
-                yield self._materialize(batch, k, host)
+                yield self._materialize(batch, k, host, planes.device)
 
     def _finish_scan(self, ls: LidarScan, inst: _FrameInstance
                      ) -> LidarScan:

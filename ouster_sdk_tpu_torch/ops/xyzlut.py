@@ -5,19 +5,22 @@ ouster_client/include/ouster/cartesian.h:36-69). The LUT is built once per
 sensor in float64 on the host; the device carries it as (hi, lo) float32
 pairs ((h, w, 3) in XYZLutDevice, planar in ops/planar_kernels.PlanarLut)
 and evaluates xyz = r * dir + off in double-single arithmetic
-(ops/precision.py).
+(ops/precision.py). XYZLutCard runs the host LUT's own float64 product on
+a card, bit-equal to it (kernels/xyz_project).
 """
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
-from typing import Optional, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core.constants import RANGE_UNIT
 from ..core.types import SensorInfo
+from ..kernels.xyz_project import lut_tensor, xyz_project
 from ..utils import profiling
 from .precision import dd_add, dd_mul_f, split_f64_array
 
@@ -35,6 +38,56 @@ class XYZLut:
         with profiling.span("xyzlut"):
             r = range_img.astype(np.float64)[..., None]
             return np.where(r == 0, 0.0, r * self.direction + self.offset)
+
+
+class XYZLutCard:
+    """An XYZLut's float64 projection on a device, bit-equal to
+    XYZLut.__call__ (kernels/xyz_project: the hand-written kernel on CUDA,
+    its plain version on the CPU).
+
+    For each device the LUT is uploaded once, with a staging buffer for the
+    range (pinned on CUDA). A call copies the range in through that buffer
+    (one host-to-device copy), projects, and copies the XYZ straight into a
+    fresh array that the caller owns (one pageable device-to-host copy,
+    which waits for the work: the buffer is free again when the call
+    returns). Calls hold a lock, so threads may share the buffers."""
+
+    def __init__(self, lut: XYZLut):
+        self.lut = lut
+        self.shape: Tuple[int, int] = lut.direction.shape[:2]
+        self._on: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+        self._lock = threading.Lock()
+
+    def takes(self, range_img: np.ndarray) -> bool:
+        """Whether `range_img` is an image of the LUT's (h, w) that the
+        kernel's uint32 operand holds exactly (unsigned, 32 bits or
+        fewer)."""
+        return (range_img.shape == self.shape
+                and range_img.dtype.kind == "u"
+                and range_img.dtype.itemsize <= 4)
+
+    def _buffers(self, device: torch.device
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        bufs = self._on.get(device)
+        if bufs is None:
+            bufs = self._on[device] = (
+                lut_tensor(self.lut.direction, self.lut.offset).to(device),
+                torch.empty(self.shape, dtype=torch.int32,
+                            pin_memory=device.type == "cuda"))
+        return bufs
+
+    def __call__(self, range_img: np.ndarray,
+                 device: torch.device) -> np.ndarray:
+        """XYZ (h, w, 3) float64 of a range image that `takes` accepts,
+        projected on `device`."""
+        with self._lock:
+            planes, range_buf = self._buffers(device)
+            np.copyto(range_buf.numpy().view(np.uint32), range_img)
+            xyz = xyz_project(range_buf.to(device, non_blocking=True),
+                              planes)
+            out = np.empty(xyz.shape, dtype=np.float64)
+            torch.from_numpy(out).copy_(xyz)
+            return out
 
 
 @dataclass

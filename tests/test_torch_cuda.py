@@ -1,5 +1,6 @@
 """The port's CUDA kernels (kernels/csrc/planar_project.cu,
-packet_project.cu, lutfree_project.cu, icp_nn.cu and voxel_map.cu) against
+packet_project.cu, lutfree_project.cu, icp_nn.cu, voxel_map.cu,
+slam_gather.cu and xyz_project.cu) against
 their plain PyTorch versions on the card. Needs an NVIDIA GPU and skips without one.
 
 This file imports neither jax nor the JAX package, so it runs where only
@@ -41,7 +42,10 @@ captures once a registration and replays once an iteration, and gathers
 every scan's frame through kernels/csrc/slam_gather.cu, whose count, mask
 and order equal its plain version's bit for bit (points within 1e-12 m)
 and whose LUT product is XYZLut's bits; normals and
-voxel downsampling on the card agree with the CPU within stated bounds."""
+voxel downsampling on the card agree with the CPU within stated bounds.
+XYZLut on the card: kernels/csrc/xyz_project.cu gives the host XYZLut's
+float64 bits; engine scans decoded on the card project there through
+XYZLut, both returns, as fresh unpinned arrays with the host's bits."""
 
 import numpy as np
 import pytest
@@ -1374,3 +1378,110 @@ def test_normals_and_downsample_on_the_card_match_the_cpu(cuda):
     assert torch.equal(m_gpu.cpu(), m_cpu)
     assert float((c_gpu.cpu() - c_cpu).abs().max()) <= 4 * float(
         np.spacing(np.float32(32.0)))
+
+
+# -- XYZLut's float64 product on the card ----------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w", [(128, 2048), (16, 256)])
+def test_xyz_project_is_the_host_lut_bit_for_bit(cuda, h, w):
+    """kernels/csrc/xyz_project.cu against ops.xyzlut.XYZLut.__call__ and
+    against its plain version on the same card tensors (the plain version
+    is held to the JAX package's LUT in tests/test_torch_xyz_project.py):
+    zero ranges, ranges of 2**19 and above, the largest uint32, a LUT with
+    an extrinsic; one launch a call."""
+    from test_torch_xyz_project import extrinsic_lut, hard_ranges
+    from ouster_sdk_tpu_torch.kernels import xyz_project as xp
+
+    lut = extrinsic_lut(h, w)
+    r = hard_ranges(h, w, h * w)
+    planes = xp.lut_tensor(lut.direction, lut.offset).to(cuda)
+    xp.reset_launches()
+    rd = torch.from_numpy(r.view(np.int32)).to(cuda)
+    got = xp.xyz_project(rd, planes)
+    plain = xp.xyz_project_reference(rd, planes)
+    torch.cuda.synchronize()
+    assert xp.launches["xyz_project"] == 1 and got.device.type == "cuda"
+    assert torch.equal(got.view(torch.int64), plain.view(torch.int64))
+    assert np.array_equal(got.cpu().numpy().view(np.uint64),
+                          lut(r).view(np.uint64))
+
+
+@pytest.mark.cuda
+def test_xyz_project_rejects_what_it_does_not_take(cuda):
+    from ouster_sdk_tpu_torch.kernels import xyz_project as xp
+
+    lut = pt.make_xyz_lut(_info(PROFILES["planar_dual"], h=16, w=64))
+    r = torch.zeros((16, 64), dtype=torch.int32, device=cuda)
+    planes = xp.lut_tensor(lut.direction, lut.offset).to(cuda)
+    xp.reset_launches()
+    for args, message in (
+            ((r.to(torch.int64), planes),
+             "range must be torch.int32, got torch.int64"),
+            ((r, planes.cpu()), "lut is on cpu, the frames on cuda:0"),
+            ((r, planes.float()),
+             "lut must be torch.float64, got torch.float32"),
+            ((r, planes[:, :, 1:].contiguous()),
+             "lut must have shape (2, 16, 64, 3), got (2, 16, 63, 3)")):
+        with pytest.raises(ValueError) as e:
+            xp.xyz_project(*args)
+        assert str(e.value) == message
+    assert xp.launches["xyz_project"] == 0
+
+
+@pytest.mark.cuda
+def test_engine_scans_project_on_the_card_as_on_the_host(cuda, tmp_path):
+    """open_source on the card, XYZLut of both returns (the scan, then its
+    RANGE2 as a bare image) with the sensor's extrinsic: the host's float64
+    bits, every return on the card (two launches and two
+    `xyzlut.device_returns` a frame), fresh unpinned arrays that no later
+    call overwrites. A CPU-decoded scan, a bare image before any card
+    scan, and a bare image that is no range field of the last card scan
+    take the host path."""
+    import chip_smoke as cs
+    from ouster_sdk_tpu_torch.kernels import xyz_project as xp
+
+    info = cs.synth_info(cs.MAIN_PROFILE, w=512, h=32)
+    info.extrinsic = np.array([[0.0, -1, 0, 1.5], [1, 0, 0, -0.25],
+                               [0, 0, 1, 0.2], [0, 0, 0, 1]])
+    path = str(tmp_path / "main.pcap")
+    cs.synth_capture(path, info, 4)
+    host = pt.make_xyz_lut(info, use_extrinsics=True)
+
+    lut = pt.XYZLut(info, use_extrinsics=True)
+    xp.reset_launches()
+    cpu_scans = [s[0] for s in pt.open_source(path, sensor_info=[info],
+                                              device="cpu")]
+    lut(cpu_scans[0].field("RANGE2"))
+    for s in cpu_scans:
+        assert s.decode_device.type == "cpu"
+        lut(s)
+    assert xp.launches["xyz_project"] == 0
+
+    def drive():
+        out = []
+        for scans in pt.open_source(path, sensor_info=[info]):
+            s = scans[0]
+            assert s.decode_device.type == "cuda"
+            out.append((s, lut(s), lut(s.field("RANGE2"))))
+        return out
+
+    got, counts = _counted(drive)
+    assert len(got) == 4
+    assert xp.launches["xyz_project"] == counts["xyzlut.device_returns"] \
+        == 2 * len(got)
+    for s, xyz, xyz2 in got:
+        assert np.array_equal(xyz, host(s.field("RANGE")))
+        assert np.array_equal(xyz2, host(s.field("RANGE2")))
+        assert not torch.from_numpy(xyz).is_pinned()
+        assert xyz.flags.owndata and xyz.flags.writeable
+    first, keep = got[0][1], got[0][1].copy()
+    first[:] = -1.0
+    again = lut(got[0][0])
+    assert np.array_equal(again, keep)
+    assert not np.shares_memory(again, first)
+    assert all(not np.shares_memory(a[1], b[2]) for a in got for b in got)
+    n = xp.launches["xyz_project"]
+    for img in (got[0][0].field("RANGE2").copy(), got[-1][0].field("RANGE2")):
+        assert np.array_equal(lut(img), host(img))
+    assert xp.launches["xyz_project"] == n

@@ -566,6 +566,27 @@ def test_cpu_tensors_launch_no_slam_gather_kernel():
         sg.slam_gather(meta, meta[0], meta, meta, meta, 5.0, 100.0)
 
 
+def test_cpu_tensors_launch_no_xyz_project_kernel():
+    """XYZLut's float64 product on the CPU takes the plain version, through
+    the kernel's wrapper and through XYZLutCard; a tensor on another
+    device is refused."""
+    from ouster_sdk_tpu_torch.kernels import xyz_project as xp
+    from ouster_sdk_tpu_torch.ops.xyzlut import XYZLutCard
+
+    _, pinfo = infos(DUAL)
+    lut = pt.make_xyz_lut(pinfo)
+    r = np.full(lut.direction.shape[:2], 20000, np.uint32)
+    xp.reset_launches()
+    assert set(xp.launches) == set(xp.CASES)
+    xp.xyz_project(torch.from_numpy(r.view(np.int32)),
+                   xp.lut_tensor(lut.direction, lut.offset))
+    assert np.array_equal(XYZLutCard(lut)(r, torch.device("cpu")), lut(r))
+    assert all(n == 0 for n in xp.launches.values())
+    meta = torch.zeros((2, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA, got meta"):
+        xp.xyz_project(meta, meta)
+
+
 class _StandInLibrary:
     """A compiled kernel library's stand-in: every launch symbol records
     its arguments and returns `code`; every `*_error_string` names the
@@ -594,7 +615,8 @@ class _StandInLibrary:
     ("icp_nn", "_index_launch", "icp_nn index"),
     ("icp_nn", "_search_launch", "icp_nn"),
     ("voxel_map", "_launch", "voxel_admit"),
-    ("slam_gather", "_launch", "slam_gather")])
+    ("slam_gather", "_launch", "slam_gather"),
+    ("xyz_project", "_launch", "xyz_project")])
 def test_launcher_raises_the_sources_message(monkeypatch, module, name,
                                              what):
     """Each bound launcher enters the device, appends its current stream

@@ -272,6 +272,26 @@ def test_cached_xyz_refuses_a_mutated_range():
     assert ls == other
 
 
+def test_decode_device_is_no_part_of_equality_or_pickling():
+    """The device engine's origin mark (LidarScan.decode_device) is left
+    out of ==, of pickling and of copies: an unpickled or cloned scan
+    carries none."""
+    import torch
+
+    _, pinfo = engine_infos(SINGLE)
+    ls = pt.LidarScan(pinfo)
+    ls.field("RANGE")[:] = 1234
+    assert ls.decode_device is None
+    ls._decode_device = torch.device("cuda", 0)
+    other = pt.LidarScan(pinfo)
+    other.field("RANGE")[:] = 1234
+    assert ls == other and other == ls
+    back = pickle.loads(pickle.dumps(ls))
+    assert back == ls and back.decode_device is None
+    assert ls.decode_device == torch.device("cuda", 0)
+    assert pt.LidarScan(ls).decode_device is None
+
+
 def test_add_and_del_field():
     _, pinfo = engine_infos(SINGLE)
     ls = pt.LidarScan(pinfo)

@@ -221,6 +221,7 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
         for scans in pt.open_source(path, sensor_info=[info],
                                     device="cpu"):
             lut(scans[0])
+            lut(scans[0].field("RANGE2"))
         engine = tracer.snapshot()
         tracer.clear()
 
@@ -234,6 +235,8 @@ def test_every_layer_records_its_spans_and_counters(tracer, yard):
         slam = tracer.snapshot()
     assert REPLAY <= names(replay)
     assert ENGINE | {"engine.d2h_copies"} <= names(engine)
+    # scans decoded on the CPU are projected on the host: no card returns
+    assert "xyzlut.device_returns" not in names(engine)
     assert SLAM | {"icp.gn_iterations", "icp.host_syncs", "map.host_syncs",
                    "map.new_voxels", "slam.device_gathers"} <= names(slam)
     # the device backend gathers every scan's frame on its device
