@@ -179,23 +179,26 @@ class ChunkFuser:
     def pack(self, arrays) -> Tuple[np.ndarray,
                                     Tuple[Tuple[int, Tuple[int, ...], str],
                                           ...]]:
-        layout = self.layout_of(arrays)
-        total = layout[-1][0] + (
-            int(np.prod(layout[-1][1]))
-            * np.dtype(layout[-1][2]).itemsize + 3) // 4
-        if total > self._words or not self._pools:
-            self._words = total
-            self._pools = [np.zeros(total, np.uint32)
-                           for _ in range(self._depth)]
-            self._flip = 0
-        buf = self._pools[self._flip]
-        self._flip = (self._flip + 1) % len(self._pools)
-        for (off, _, _), a in zip(layout, arrays):
-            flat = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
-            dst = buf[off:off + (flat.size + 3) // 4].view(np.uint8)
-            dst[:flat.size] = flat
-            if flat.size % 4:
-                dst[flat.size:] = 0
+        with profiling.span("frames.fuse"):
+            layout = self.layout_of(arrays)
+            total = layout[-1][0] + (
+                int(np.prod(layout[-1][1]))
+                * np.dtype(layout[-1][2]).itemsize + 3) // 4
+            if total > self._words or not self._pools:
+                self._words = total
+                self._pools = [np.zeros(total, np.uint32)
+                               for _ in range(self._depth)]
+                self._flip = 0
+            buf = self._pools[self._flip]
+            self._flip = (self._flip + 1) % len(self._pools)
+            for (off, _, _), a in zip(layout, arrays):
+                flat = np.ascontiguousarray(a).reshape(-1).view(np.uint8)
+                dst = buf[off:off + (flat.size + 3) // 4].view(np.uint8)
+                dst[:flat.size] = flat
+                if flat.size % 4:
+                    dst[flat.size:] = 0
+        # what the consumer's one copy ships
+        profiling.count("frames.fused_bytes", total * 4)
         return buf[:total], layout
 
 
@@ -1017,22 +1020,23 @@ class FrameReader:
             m = fids.size
             max_used = 0
             for i in range(m):
-                used = native.bp64_encode(
-                    np.ascontiguousarray(planes[i]), bits, nbits,
-                    pay[i], wid[i].reshape(-1), anc[i].reshape(-1))
-                if used == -2:          # no native library: numpy encoder
-                    from ..ops.bp64 import bp64_encode_numpy
+                with profiling.span("frames.bp64_encode", int(fids[i])):
+                    used = native.bp64_encode(
+                        np.ascontiguousarray(planes[i]), bits, nbits,
+                        pay[i], wid[i].reshape(-1), anc[i].reshape(-1))
+                    if used == -2:      # no native library: numpy encoder
+                        from ..ops.bp64 import bp64_encode_numpy
 
-                    vals = (planes[i] >> bits[:, None, None].astype(
-                        np.uint32)) & vmask
-                    p, w_, a_ = bp64_encode_numpy(vals, nbits)
-                    used = p.size
-                    pay[i, :used] = p
-                    wid[i] = w_
-                    anc[i] = a_
-                elif used < 0:
-                    raise RuntimeError("bp64 encoder overflow (capacity "
-                                       "is sized for the worst case)")
+                        vals = (planes[i] >> bits[:, None, None].astype(
+                            np.uint32)) & vmask
+                        p, w_, a_ = bp64_encode_numpy(vals, nbits)
+                        used = p.size
+                        pay[i, :used] = p
+                        wid[i] = w_
+                        anc[i] = a_
+                    elif used < 0:
+                        raise RuntimeError("bp64 encoder overflow (capacity "
+                                           "is sized for the worst case)")
                 pay[i, used:used + 2] = 0     # the decode's slack words
                 max_used = max(max_used, used)
             if max_used + 2 > ship:           # grow only: stable shapes

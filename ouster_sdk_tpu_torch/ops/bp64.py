@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from .planar_kernels import project_ranges_batched
 from .unpack import DecodePlan, _U32, _u32
 
@@ -246,13 +247,16 @@ def bp64_ranges(payload: torch.Tensor, widths: torch.Tensor,
             "upshifts needs one entry per bp64 field "
             f"({2 if dual else 1}); use packed_range_fields(plan, dual)")
     B, F = widths.shape[:2]
-    vals = _decode_core(_u32(payload), widths.reshape(B, -1).to(torch.int64),
-                        _u32(anchors).reshape(B, -1)
-                        ).reshape(B, F, plan.h, plan.w)
-    ranges = []
-    for k in range(2 if dual else 1):
-        r = vals[:, k]
-        if upshifts[k]:
-            r = (r << upshifts[k]) & _U32
-        ranges.append(r)
+    with profiling.span("bp64.decode"):
+        vals = _decode_core(_u32(payload),
+                            widths.reshape(B, -1).to(torch.int64),
+                            _u32(anchors).reshape(B, -1)
+                            ).reshape(B, F, plan.h, plan.w)
+        ranges = []
+        for k in range(2 if dual else 1):
+            r = vals[:, k]
+            if upshifts[k]:
+                r = (r << upshifts[k]) & _U32
+            ranges.append(r)
+    profiling.count("bp64.ranges_decoded", B * F)
     return ranges

@@ -11,6 +11,8 @@ and counters the program records with it, on the CPU.
 - A 16 x 256 replay to XYZ, open_source with XYZLut, and SlamEngine on the
   device backend record every span and counter of the program's layers,
   but the card's own (the Gauss-Newton iteration's CUDA graph).
+- A wire-codec pass records an encode a frame, a pack a chunk, the bytes
+  packed and the range images decoded; a planar pass records none of them.
 """
 
 import json
@@ -36,6 +38,9 @@ ENGINE = {"engine.admission", "engine.decode", "engine.copy_back",
 SLAM = {"slam.predict", "slam.gather", "slam.preprocess", "slam.voxelize",
         "slam.threshold", "icp.map_upload", "icp.index_build", "icp.gn_loop",
         "map.add_points", "map.remove_far"}
+# the wire path's alone (io.frames' BP64 staging and ChunkFuser, ops.bp64)
+WIRE = {"frames.bp64_encode", "frames.fuse", "frames.fused_bytes",
+        "bp64.decode", "bp64.ranges_decoded"}
 # the card's alone: the Gauss-Newton iteration's CUDA graph (slam/device_icp)
 CARD_ONLY = {"icp.graph_capture", "icp.graph_captures", "icp.graph_replays"}
 
@@ -297,3 +302,48 @@ def test_a_rig_pass_records_a_collation_a_set_and_the_bytes_scanned(
     scanned = [c.n for c in snap.counts if c.name == "frames.capture_bytes"]
     assert scanned == [os.path.getsize(path)] * 2
     assert sum(s.name == "frames.capture_scan" for s in snap.spans) == 2
+
+
+def test_a_wire_pass_records_the_encode_the_pack_and_the_decode(tracer,
+                                                                 yard):
+    from ouster_sdk_tpu_torch.ops import bp64, packed
+    from ouster_sdk_tpu_torch.ops.planar_kernels import words_tensor
+
+    path, info = yard
+    pipe = pt.ScanPipeline(info, device="cpu")
+    fields, nbits, ups = packed.packed_range_fields(pipe.plan, pipe.dual)
+    reader = pt.FrameReader(path, info)
+    sizes, frames = [], 0
+    with tracer.tracing(True):
+        for fids, fused, layout in pt.fused_pipelined(
+                lambda: reader.iter_bp64_chunks(2, fields, nbits,
+                                                pool_depth=4),
+                lambda item: (item[0], list(item[1:5])), 2):
+            parts = packed.unfuse_words(words_tensor(fused, "cpu"), layout)
+            bp64.project_bp64_batched(*parts, pipe.planar_lut.stack,
+                                      pipe.plan, nbits, upshifts=ups,
+                                      dual=True)
+            sizes.append(fused.nbytes)
+            frames += len(fids)
+        wire = tracer.snapshot()
+        tracer.clear()
+        for _, planes, hdrs, _ in pt.FrameReader(
+                path, info).iter_planar_chunks_pipelined(2):
+            pipe.project_planar(planes, hdrs)
+        planar = tracer.snapshot()
+    spans = [s.name for s in wire.spans]
+    assert frames == 6 and len(sizes) == 3
+    assert spans.count("frames.bp64_encode") == frames
+    assert spans.count("frames.fuse") == len(sizes)
+    assert spans.count("bp64.decode") == len(sizes)
+    counted = lambda name: [c.n for c in wire.counts if c.name == name]
+    assert counted("frames.fused_bytes") == sizes
+    assert sum(counted("bp64.ranges_decoded")) == 2 * frames
+    # the encode and the pack on the staging thread, the decode on this one
+    main = threading.get_native_id()
+    assert all(s.thread != main for s in wire.spans
+               if s.name in ("frames.bp64_encode", "frames.fuse"))
+    assert all(s.thread == main for s in wire.spans
+               if s.name == "bp64.decode")
+    assert REPLAY - {"destagger"} <= names(planar)
+    assert not WIRE & names(planar)
